@@ -1,0 +1,7 @@
+"""PyTorch and CUDA port of the Triggerflow reproduction (``src/repro``).
+
+Imports torch and numpy, never jax and never the ``repro`` package.  Layout
+mirrors the reference: ``core`` and ``obs`` (the Triggerflow runtime),
+``kernels`` (hand-written CUDA kernels for Hopper, sources in ``csrc``),
+``models``, ``configs``, ``serving`` and ``launch``.
+"""

@@ -1,0 +1,46 @@
+"""Weights from the JAX package into the port.
+
+``params_from_jax(tree)`` turns the reference's unboxed params — a nested
+dict of numpy arrays, as ``jax.device_get(unbox(model.init(key)))`` gives
+it — into the port's ``state_dict``.  The layouts are the same, so this is
+a rename (path parts joined by ``.``) plus a split of the stacked layer
+axis: ``layers/attn/wq[i]`` becomes ``layers.{i}.attn.wq``.  A bf16 leaf
+arrives as an ``ml_dtypes.bfloat16`` array, which torch cannot read; it goes
+through fp32, which holds every bf16 value exactly.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _flatten(tree, prefix: str, out: Dict[str, Any]) -> None:
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            _flatten(val, name + ".", out)
+        else:
+            out[name] = val
+
+
+def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    flat: Dict[str, Any] = {}
+    _flatten(tree, "", flat)
+    state: Dict[str, torch.Tensor] = {}
+    for name, leaf in flat.items():
+        head, _, rest = name.partition(".")
+        if head != "layers":
+            state[name] = _tensor(leaf)
+        else:
+            for i, layer in enumerate(np.asarray(leaf)):
+                state[f"layers.{i}.{rest}"] = _tensor(layer)
+    return state

@@ -31,3 +31,9 @@ if os.environ.get("TFCHECK_TRACE_LOCKS"):
         or slept while holding a bus lock."""
         yield
         locktrace.check()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's kernels have no CPU "
+                   "mode); the test skips without one")

@@ -1,0 +1,63 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without a CUDA device: the
+kernels have no CPU mode.  This file imports neither jax nor the JAX
+package, so it also runs on a machine without them:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: K1 counts integers (exact).  K2 and its plain version both
+compute in fp32 and differ only in the summation order, so in bf16 an
+output differs by at most one rounding flip, |got - want| <= 2**-7 |want|
++ 1e-3 (one bf16 ulp, with a floor for outputs near 0); in fp32 by at most
+1e-4 (summation order over up to 1024 keys).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.event_join import ops as join_ops
+from repro_torch.kernels.event_join.ref import join_counts_torch
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("T,N", [(100, 0), (100, 5), (100, 4096), (100, 200_000),
+                                 (4096, 1_048_576), (60_000, 100_000)])
+def test_event_join_kernel_matches_plain(cuda, T, N):
+    rng = np.random.default_rng(N)
+    events = torch.from_numpy(rng.integers(-1, T + 3, N).astype(np.int32))
+    counts = torch.from_numpy(rng.integers(0, 5, T).astype(np.int32))
+    expected = torch.from_numpy(rng.integers(1, 30, T).astype(np.int32))
+    nc, fired = join_ops.event_join(events.to(cuda), counts.to(cuda), expected.to(cuda))
+    want_nc, want_f = join_counts_torch(events, counts, expected)
+    assert torch.equal(nc.cpu(), want_nc) and torch.equal(fired.cpu(), want_f)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,Dv,dtype,causal", [
+    (1, 64, 4, 4, 16, 16, torch.float32, True),
+    (2, 96, 4, 1, 16, 16, torch.float32, True),
+    (1, 80, 4, 2, 16, 16, torch.float32, True),
+    (1, 64, 4, 4, 16, 16, torch.float32, False),
+    (1, 96, 4, 2, 32, 16, torch.float32, True),
+    (2, 1000, 24, 8, 128, 128, torch.bfloat16, True),
+    (1, 300, 4, 2, 256, 256, torch.float32, True),
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, Dv, dtype, causal):
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, Dv)))
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    want = flash_attention_torch(q, k, v, causal=causal)
+    want = want.float()
+    tol = 2.0 ** -7 * want.abs() + 1e-3 if dtype == torch.bfloat16 else 1e-4
+    assert ((got.float() - want).abs() <= tol).all()
