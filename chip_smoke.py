@@ -10,22 +10,38 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. K1        event_join against its plain torch version, exact, and timed
              beside torch.bincount (the yardstick, which the port never calls);
 3. K2        flash_attention against its plain torch version at the serving
-             shapes, and timed beside scaled_dot_product_attention (the
-             yardstick only);
-4. join      the Table-1 join (100 triggers x 2000 events) through the port's
+             shapes of llama3.2-3b and zamba2-1.2b, and timed at both beside
+             scaled_dot_product_attention (the yardstick only);
+4. K3        ssd_scan against its plain torch version (y and the final
+             state) over chunks of 16, 64 and 128, ragged and single-chunk
+             sequences, bf16 and fp32, and zamba2-1.2b's prefill shape; the
+             plain version against the time recurrence; K3 timed at the
+             prefill shape (no single PyTorch call computes the SSD scan,
+             so there is no yardstick);
+5. join      the Table-1 join (100 triggers x 2000 events) through the port's
              Triggerflow on the card: 100 fires through K1 on the worker's
              own card, the same final counts as the same run on the CPU
              with the plain torch backend;
-5. serving   llama3.2-3b at full width in bf16 with seeded random weights:
+6. serving   llama3.2-3b at full width in bf16 with seeded random weights:
              8 requests through ServingEngine under KedaAutoscaler, K2 on
              every prefill layer; then, on the first batch, K2 against its
              plain version at every layer's own inputs, and the logits at
              every position with K2 against those with the plain attention
              swapped in (and against a deliberately wrong attention, which
-             must fail the same tolerance).
+             must fail the same tolerance);
+7. hybrid    zamba2-1.2b at full width in bf16, the same 8 requests: K3 on
+             every Mamba2 prefill layer and K2 at every shared-attention
+             site; then, on the first batch, K3 against its plain version at
+             every layer's own inputs (bf16, as served), and the logits at
+             every position with K3, with the plain SSD swapped in, with the
+             plain SSD at another chunk (equally right: the rounding floor)
+             and with a deliberately wrong SSD (the plain version with the
+             state between chunks dropped), with the activations in fp32:
+             in bf16 rounding alone moves the logits of this 38-layer
+             random-weight model by O(1).
 
 Each kernel's launch count is set to 0 just before the path that should
-launch it (phases 4 and 5) and read just after.  Earlier lines print JSON
+launch it (phases 5, 6 and 7) and read just after.  Earlier lines print JSON
 results, the card's name and power limit and a "kernels" line; the last line
 is {"ok": true, "device": {...}}.  Without CUDA, or away from the repo, it
 exits non-zero and prints no result.
@@ -41,6 +57,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12                 # H100 SXM HBM3
 PEAK_OPS_S = {"bfloat16": 989e12,      # dense bf16 tensor cores
+              "tfloat32": 494.7e12,    # dense tf32 tensor cores: fp32 operands
               "float32": 67e12,        # fp32 outside the tensor cores
               "int32": 67e12}          # scalar integer ops, taken at the fp32 rate
 
@@ -223,7 +240,8 @@ def phase_k2():
     cases += [(2, 512, 16, 16, 128, 128, torch.bfloat16, True),    # MHA
               (2, 512, 16, 1, 128, 128, torch.bfloat16, True),     # MQA
               (2, 512, 24, 8, 128, 128, torch.bfloat16, False),    # non-causal
-              (2, 384, 16, 4, 192, 128, torch.float32, True)]      # Dv != D
+              (2, 384, 16, 4, 192, 128, torch.float32, True),      # Dv != D
+              (4, 1024, 32, 32, 64, 64, torch.bfloat16, True)]     # zamba2-1.2b
     results = []
     max_err = 0.0
     for i, (B, S, Hq, Hkv, D, Dv, dtype, causal) in enumerate(cases):
@@ -238,19 +256,110 @@ def phase_k2():
         max_err = max(max_err, err)
         results.append({"case": name, "max_abs_err": err, "excess": excess})
     emit(phase="k2", cases=results)
-    # timing at the main path's shape: a serving prefill of 4 prompts padded
-    # to 1024 tokens, llama3.2-3b heads, bf16, causal
-    B, S, Hq, Hkv, D = 4, 1024, 24, 8, 128
-    q, k, v = _attn_inputs(B, S, Hq, Hkv, D, D, torch.bfloat16, 99)
-    times = kernel_times(10, ms=lambda: ops.flash_attention(q, k, v),
-                         plain_ms=lambda: flash_attention_torch(q, k, v),
-                         library_ms=_sdpa(q, k, v, True))
-    flops = 2 * B * Hq * (D + D) * S * (S + 1) / 2     # the causal pairs only
-    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    b, by = bound_ms(n_bytes, flops, "bfloat16")
-    emit(phase="k2_timing", shape=[B, S, Hq, Hkv, D], tflops=flops / times["ms"] / 1e9,
-         bound_ms=b, **times)
-    return {"max_abs_err": max_err, "bound_ms": b, "bound_by": by, **times}
+    # timing at the main paths' shapes: a serving prefill of 4 prompts padded
+    # to 1024 tokens, bf16, causal, with llama3.2-3b's heads (the kernels
+    # line) and with zamba2-1.2b's
+    timed = {}
+    for arch, (Hq, Hkv, D) in (("llama3.2-3b", (24, 8, 128)), ("zamba2-1.2b", (32, 32, 64))):
+        B, S = 4, 1024
+        q, k, v = _attn_inputs(B, S, Hq, Hkv, D, D, torch.bfloat16, 99)
+        times = kernel_times(10, ms=lambda: ops.flash_attention(q, k, v),
+                             plain_ms=lambda: flash_attention_torch(q, k, v),
+                             library_ms=_sdpa(q, k, v, True))
+        flops = 2 * B * Hq * (D + D) * S * (S + 1) / 2     # the causal pairs only
+        n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        b, by = bound_ms(n_bytes, flops, "bfloat16")
+        emit(phase="k2_timing", arch=arch, shape=[B, S, Hq, Hkv, D],
+             tflops=flops / times["ms"] / 1e9, bound_ms=b, **times)
+        timed[arch] = {"max_abs_err": max_err, "bound_ms": b, "bound_by": by, **times}
+    return timed["llama3.2-3b"]
+
+
+def ssd_excess(got, want) -> tuple:
+    """(max |got - want|, max of |got - want| less its tolerance) for K3's
+    y or state against its plain version.  Both compute in fp32 in another
+    order (the chunk's cumsum of a*dt included), which leaves fp32 results
+    within 1e-4 (1 + max|want|); a bf16 y differs by one rounding flip more,
+    2**-7 |want|.  The check passes while the excess is <= 0."""
+    import torch
+
+    d = (got.float() - want.float()).abs()
+    tol = 1e-4 * (1 + want.float().abs().max().item())
+    if want.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * want.float().abs()
+    return d.max().item(), (d - tol).max().item()
+
+
+def _ssd_inputs(B, S, H, P, N, dtype, seed):
+    """Model-like inputs: x a strided view (every other head of a wider
+    tensor, as the kernel reads x through its strides), dt = softplus(N(0,1)),
+    a = -exp(0.3 N(0,1))."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(B, S, 2 * H, P, generator=gen, device="cuda") * 0.5).to(dtype)[:, :, ::2]
+    dt = F.softplus(torch.randn(B, S, H, generator=gen, device="cuda"))
+    Bm, Cm = ((torch.randn(B, S, N, generator=gen, device="cuda") * 0.5).to(dtype)
+              for _ in range(2))
+    a = -torch.exp(torch.randn(H, generator=gen, device="cuda") * 0.3)
+    return x, dt, Bm, Cm, a
+
+
+def phase_k3():
+    import torch
+
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import ssd_scan_recurrence, ssd_scan_torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(2, 256, 4, 64, 64, 16, f32),       # S a multiple of the chunk
+             (2, 300, 4, 64, 64, 64, bf16),      # ragged
+             (3, 100, 5, 32, 16, 128, f32),      # one chunk, shorter than 128
+             (2, 128, 4, 64, 64, 128, bf16),     # one full chunk
+             (2, 512, 8, 64, 64, 128, f32),
+             (2, 1000, 8, 64, 64, 128, bf16),    # ragged at 128
+             (4, 1024, 64, 64, 64, 128, bf16)]   # zamba2-1.2b's prefill
+    results = []
+    max_err = 0.0
+    for i, (B, S, H, P, N, chunk, dtype) in enumerate(cases):
+        inputs = _ssd_inputs(B, S, H, P, N, dtype, i)
+        y, state = ops.ssd(*inputs, chunk=chunk)
+        want_y, want_state = ssd_scan_torch(*inputs, chunk=chunk)
+        (ey, xy), (es, xs) = ssd_excess(y, want_y), ssd_excess(state, want_state)
+        name = f"B{B} S{S} H{H} P{P} N{N} Q{chunk} {str(dtype)[6:]}"
+        if not (xy <= 0 and xs <= 0 and y.dtype == dtype):
+            raise AssertionError(f"ssd_scan {name}: y error {ey} (excess {xy}), state "
+                                 f"error {es} (excess {xs})")
+        max_err = max(max_err, ey, es)
+        results.append({"case": name, "y_max_abs_err": ey, "state_max_abs_err": es,
+                        "y_excess": xy, "state_excess": xs})
+    # the plain version against the step-by-step recurrence
+    inputs = _ssd_inputs(2, 256, 4, 32, 16, f32, 77)
+    (y, state), (ry, rstate) = ssd_scan_torch(*inputs, chunk=64), ssd_scan_recurrence(*inputs)
+    rec = max(ssd_excess(y, ry)[1], ssd_excess(state, rstate)[1])
+    if not rec <= 0:
+        raise AssertionError(f"ssd_scan_torch differs from the recurrence (excess {rec})")
+    emit(phase="k3", cases=results, plain_vs_recurrence_excess=rec)
+    # timing at the main path's shape: zamba2-1.2b's prefill of 4 prompts
+    # padded to 1024 tokens, 64 heads of P = 64, N = 64, chunk 128
+    B, S, H, P, N, Q = 4, 1024, 64, 64, 64, 128
+    x, dt, Bm, Cm, a = _ssd_inputs(B, S, H, P, N, bf16, 99)
+    x = x.contiguous()
+    times = kernel_times(20, ms=lambda: ops.ssd(x, dt, Bm, Cm, a, chunk=Q),
+                         plain_ms=lambda: ssd_scan_torch(x, dt, Bm, Cm, a, chunk=Q))
+    # per (b, h) and chunk of q steps: C·Bᵀ and the mixing tile times x over
+    # the causal pairs only (the kernel skips the rest), C·h and the state
+    # update over all q steps
+    chunks = [min(Q, S - s0) for s0 in range(0, S, Q)]
+    flops = sum(2 * (q * (q + 1) // 2 * (N + P) + 2 * q * N * P) for q in chunks) * B * H
+    n_bytes = (2 * 2 * x.numel() + 4 * dt.numel() + 2 * (Bm.numel() + Cm.numel())
+               + 4 * B * H * N * P + 4 * H)
+    b, by = bound_ms(n_bytes, flops, "tfloat32")
+    emit(phase="k3_timing", shape=[B, S, H, P, N, Q], gflop=flops / 1e9, mbytes=n_bytes / 1e6,
+         tflops=flops / times["ms"] / 1e9, bound_ms=b, bound_by=by, **times)
+    return {"max_abs_err": max_err, "bound_ms": b, "bound_by": by, "library_ms": None,
+            **times}
 
 
 def _join_run(device, n_triggers=100, events_each=2000):
@@ -304,21 +413,18 @@ def phase_join():
     return launches
 
 
-def phase_serving():
+def _serve(cfg, counters):
+    """Serve 8 seeded prompts of 128-1024 tokens, 4 to a batch, 16 new tokens
+    each, through ServingEngine under KedaAutoscaler on the card.  Every
+    module of ``counters`` has its ``launches`` set to 0 just before the run
+    and read just after.  Then time the first batch's prefill and decode and
+    profile both.  Returns the run's numbers and what the checks need."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core import KedaAutoscaler, Triggerflow
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
-    from repro_torch.models import layers
     from repro_torch.serving.engine import ServingEngine
 
-    cfg = get_config("llama3.2-3b")
-    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-            cfg.d_ff, cfg.vocab) != (28, 3072, 24, 8, 128, 8192, 128256):
-        raise AssertionError(f"llama3.2-3b is not at full width: {cfg}")
     t0 = time.perf_counter()
     tf = Triggerflow(inline_functions=True, device="cuda")
     eng = ServingEngine(cfg, tf, "serve", max_batch=4, max_new_tokens=16, max_len=2048)
@@ -330,7 +436,8 @@ def phase_serving():
                for _ in range(8)]
 
     torch.cuda.reset_peak_memory_stats()
-    fa_ops.launches = 0
+    for mod in counters.values():
+        mod.launches = 0
     scaler = KedaAutoscaler(tf, poll_interval=0.05, grace_period=0.5).start()
     t0 = time.perf_counter()
     try:
@@ -349,23 +456,23 @@ def phase_serving():
             time.sleep(0.01)
     finally:
         scaler.stop()
-    k2_launches = fa_ops.launches
+    launches = {name: mod.launches for name, mod in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     tf.shutdown()
     if eng.served != 8 or eng.batches != 2 or len(done) != 8:
-        raise AssertionError(f"served {eng.served} in {eng.batches} batches, "
-                             f"{len(done)} results")
+        raise AssertionError(f"{cfg.arch}: served {eng.served} in {eng.batches} "
+                             f"batches, {len(done)} results")
     for rid, toks in done.items():
         if len(toks) != 16 or not all(0 <= t < cfg.vocab for t in toks):
-            raise AssertionError(f"{rid}: bad tokens {toks}")
-    if k2_launches != 2 * cfg.n_layers:
-        raise AssertionError(f"K2 launched {k2_launches} times, want {2 * cfg.n_layers}")
+            raise AssertionError(f"{cfg.arch} {rid}: bad tokens {toks}")
 
     # the first batch again, timed with CUDA events
     model = eng.model
     tokens = eng.prompt_batch([{"prompt": p} for p in prompts[:4]])
     prefill_ms = cuda_ms(lambda: model.prefill({"tokens": tokens}, max_len=2048), 3, 1)
     logits, cache = model.prefill({"tokens": tokens}, max_len=2048)
+    if not (torch.isfinite(logits).all() and logits.shape == (4, cfg.vocab)):
+        raise AssertionError(f"{cfg.arch}: prefill logits are not finite [4, vocab]")
     tok = logits.argmax(-1)[:, None]
 
     def decode_steps():
@@ -377,17 +484,78 @@ def phase_serving():
 
     decode_ms = cuda_ms(decode_steps, 3, 1) / 16
     profiles = {"prefill": device_profile(
-                    lambda: model.prefill({"tokens": tokens}, max_len=2048), 2),
+                    lambda: model.prefill({"tokens": tokens}, max_len=2048), 2, top=8),
                 "decode_16_steps": device_profile(decode_steps, 2, top=8)}
+    run = dict(arch=cfg.arch, params=cfg.param_count(), init_s=init_s, requests=8,
+               batches=eng.batches, new_tokens=16, prompt_lens=[len(p) for p in prompts],
+               wall_s=wall, tokens_per_s=8 * 16 / wall, prefill_ms_batch0=prefill_ms,
+               decode_ms_per_token=decode_ms, peak_gib=peak_gib, launches=launches,
+               profile=profiles)
+    return run, model, tokens
 
-    # K2 against its plain version inside the full-width model (monkeypatches
-    # of this script's, not switches in the package).  First every layer's
-    # own q, k, v: K2's output against the plain version's, at the kernel's
-    # tolerance.  Then the logits at every position of the first batch, with
-    # K2, with the plain version and with a deliberately wrong attention (the
-    # plain version without its causal mask): the gap K2 leaves must be
-    # under the tolerance, and the wrong attention's gap over it, which shows
-    # that the tolerance can tell a wrong kernel from rounding.
+
+def _logits_by_variant(model, tokens, module, name, variants):
+    """The logits at every position of ``tokens`` with ``module.<name>``
+    swapped for each of ``variants`` in turn (monkeypatches of this
+    script's, not switches in the package)."""
+    real = getattr(module, name)
+    full = {}
+    try:
+        for key, fn in variants.items():
+            setattr(module, name, fn)
+            full[key] = model.forward({"tokens": tokens})[0]
+    finally:
+        setattr(module, name, real)
+    return full
+
+
+def _logits_check(arch, full, what, rtol):
+    """The gap the kernel leaves in the logits must be under the tolerance,
+    rtol (1 + max|logits|), and the wrong version's gap over it, which shows
+    that the tolerance can tell a wrong kernel from rounding.  The kernel and
+    its plain version differ by rounding in some outputs of each layer (held
+    at every layer before this), and that passes through every residual
+    layer to the logits."""
+    import torch
+
+    if not torch.isfinite(full["kernel"]).all():
+        raise AssertionError(f"{arch}: forward logits with {what} are not finite")
+    err = (full["kernel"] - full["plain"]).abs().max().item()
+    wrong_err = (full["wrong"] - full["plain"]).abs().max().item()
+    scale = full["plain"].abs().max().item()
+    tol = rtol * (1 + scale)
+    argmax_agree = (full["kernel"].argmax(-1) == full["plain"].argmax(-1)).float().mean().item()
+    out = dict(logits_kernel_vs_plain_max_abs=err, logits_wrong_vs_plain_max_abs=wrong_err,
+               max_abs_logit=scale, tolerance=tol, argmax_agree=argmax_agree)
+    if not err <= tol:
+        raise AssertionError(f"{arch}: logits with {what} differ from those with its "
+                             f"plain version by {err} > {tol}: {out}")
+    if not wrong_err > tol:
+        raise AssertionError(f"{arch}: a wrong version of {what} moves the logits by "
+                             f"only {wrong_err} <= {tol}: the tolerance cannot tell it "
+                             f"from rounding: {out}")
+    return out
+
+
+def phase_serving():
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    from repro_torch.models import layers
+
+    cfg = get_config("llama3.2-3b")
+    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab) != (28, 3072, 24, 8, 128, 8192, 128256):
+        raise AssertionError(f"llama3.2-3b is not at full width: {cfg}")
+    run, model, tokens = _serve(cfg, {"k2": fa_ops})
+    k2_launches = run["launches"]["k2"]
+    if k2_launches != 2 * cfg.n_layers:
+        raise AssertionError(f"K2 launched {k2_launches} times, want {2 * cfg.n_layers}")
+
+    # K2 against its plain version inside the full-width model: first every
+    # layer's own q, k, v at the kernel's tolerance, then the logits at every
+    # position of the first batch with K2, with the plain version and with a
+    # deliberately wrong attention (the plain version without its causal mask)
     real = layers.flash_attention
     layer_excess = []
 
@@ -399,46 +567,108 @@ def phase_serving():
     def wrong(q, k, v, causal=True):
         return flash_attention_torch(q, k, v, causal=False)
 
-    full = {}
-    try:
-        for name, attn in (("kernel", checked), ("plain", flash_attention_torch),
-                           ("wrong", wrong)):
-            layers.flash_attention = attn
-            full[name] = model.forward({"tokens": tokens})[0]
-    finally:
-        layers.flash_attention = real
-    if not (torch.isfinite(logits).all() and logits.shape == (4, cfg.vocab)):
-        raise AssertionError("prefill logits are not finite [4, vocab]")
+    full = _logits_by_variant(model, tokens, layers, "flash_attention",
+                      {"kernel": checked, "plain": flash_attention_torch, "wrong": wrong})
     if len(layer_excess) != cfg.n_layers or max(x for _, x in layer_excess) > 0:
         raise AssertionError(f"K2 differs from its plain version inside the model: "
                              f"(max |error|, excess) per layer {layer_excess}")
-    if not torch.isfinite(full["kernel"]).all():
-        raise AssertionError("forward logits with K2 are not finite")
-    err = (full["kernel"] - full["plain"]).abs().max().item()
-    wrong_err = (full["wrong"] - full["plain"]).abs().max().item()
-    scale = full["plain"].abs().max().item()
-    # Tolerance: the kernel and its plain version differ by one bf16 rounding
-    # flip in some outputs of each layer (held above at every layer); those
-    # flips pass through up to 28 bf16 residual layers to the logits.
-    tol = 5e-2 * (1 + scale)
-    argmax_agree = (full["kernel"].argmax(-1) == full["plain"].argmax(-1)).float().mean().item()
-    emit(phase="serving", arch=cfg.arch, params=cfg.param_count(), init_s=init_s,
-         requests=8, batches=eng.batches, new_tokens=16,
-         prompt_lens=[len(p) for p in prompts], wall_s=wall,
-         tokens_per_s=8 * 16 / wall, prefill_ms_batch0=prefill_ms,
-         decode_ms_per_token=decode_ms, peak_gib=peak_gib, k2_launches=k2_launches,
+    # bf16: one rounding flip in some outputs of each of 28 layers
+    gaps = _logits_check(cfg.arch, full, "K2", 5e-2)
+    emit(phase="serving", k2_launches=k2_launches,
+         layer_max_abs_err=max(e for e, _ in layer_excess),
+         layer_max_excess=max(x for _, x in layer_excess), **gaps, **run)
+    return k2_launches
+
+
+def _ssd_without_carry(x, dt, Bm, Cm, a, chunk, decay_dtype):
+    """A deliberately wrong SSD: the plain version run on each chunk alone,
+    so the state between chunks is dropped."""
+    import torch
+
+    from repro_torch.kernels.ssd.ref import ssd_scan_torch
+
+    Q = min(chunk, x.shape[1])
+    ys = []
+    for s0 in range(0, x.shape[1], Q):
+        y, state = ssd_scan_torch(x[:, s0:s0 + Q], dt[:, s0:s0 + Q], Bm[:, s0:s0 + Q],
+                                  Cm[:, s0:s0 + Q], a, chunk, decay_dtype)
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
+
+
+def phase_hybrid():
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_scan_torch
+    from repro_torch.models import ssm
+
+    cfg = get_config("zamba2-1.2b")
+    H = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+    if (cfg.family, cfg.n_layers, cfg.d_model, cfg.ssm_expand * cfg.d_model, H,
+            cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk, len(cfg.shared_sites()),
+            cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.vocab) != \
+            ("hybrid", 38, 2048, 4096, 64, 64, 64, 128, 7, 32, 32, 64, 32000):
+        raise AssertionError(f"zamba2-1.2b is not at full width: {cfg}")
+    run, model, tokens = _serve(cfg, {"k3": ssd_ops, "k2": fa_ops})
+    launches = run["launches"]
+    want = {"k3": 2 * cfg.n_layers, "k2": 2 * len(cfg.shared_sites())}
+    if launches != want:
+        raise AssertionError(f"launches {launches} in the hybrid run, want {want}")
+
+    # K3 against its plain version at each of the 38 layers' own inputs, in
+    # bf16 as served, in one forward over the first batch
+    real = ssm.ssd
+    layer_excess = []
+
+    def checked(x, dt, Bm, Cm, a, chunk, decay_dtype):
+        y, state = real(x, dt, Bm, Cm, a, chunk, decay_dtype)
+        want_y, want_state = ssd_scan_torch(x, dt, Bm, Cm, a, chunk, decay_dtype)
+        (ey, xy), (es, xs) = ssd_excess(y, want_y), ssd_excess(state, want_state)
+        layer_excess.append((max(ey, es), max(xy, xs)))
+        return y, state
+
+    bf16 = _logits_by_variant(model, tokens, ssm, "ssd", {"kernel": checked})["kernel"]
+    if len(layer_excess) != cfg.n_layers or max(x for _, x in layer_excess) > 0:
+        raise AssertionError(f"K3 differs from its plain version inside the model: "
+                             f"(max |error|, excess) per layer {layer_excess}")
+    if not torch.isfinite(bf16).all():
+        raise AssertionError("zamba2-1.2b: bf16 forward logits with K3 are not finite")
+    del bf16
+
+    # The logits four ways with the activations in fp32, where rounding noise
+    # is 2**16 times smaller than in bf16: with K3, with the plain SSD, with
+    # the plain SSD at chunk 64 (equally right, so its gap to the plain SSD
+    # at chunk 128 is the floor that rounding reaches through 38 layers) and
+    # with the SSD without its state between chunks.
+    def plain_q64(x, dt, Bm, Cm, a, chunk, decay_dtype):
+        return ssd_scan_torch(x, dt, Bm, Cm, a, 64, decay_dtype)
+
+    variants = {"kernel": real, "plain": ssd_scan_torch, "plain_q64": plain_q64,
+                "wrong": _ssd_without_carry}
+    model.cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    try:
+        fp32 = _logits_by_variant(model, tokens, ssm, "ssd", variants)
+    finally:
+        model.cfg = cfg
+    floor = (fp32["plain_q64"] - fp32["plain"]).abs().max().item()
+    # the floor is about 5e-4 of the largest logit (NVIDIA H100 80GB HBM3,
+    # 700 W), so 1e-2 leaves a margin of 20; K3 must also stay within a few
+    # times the floor, as a kernel that differs by rounding alone does
+    gaps = _logits_check(cfg.arch, fp32, "K3 (fp32 activations)", 1e-2)
+    if not gaps["logits_kernel_vs_plain_max_abs"] <= 4 * floor:
+        raise AssertionError(f"zamba2-1.2b: logits with K3 differ from those with the "
+                             f"plain SSD by more than 4 times the rounding floor {floor}: "
+                             f"{gaps}")
+    emit(phase="hybrid", k3_launches=launches["k3"], k2_launches=launches["k2"],
          layer_max_abs_err=max(e for e, _ in layer_excess),
          layer_max_excess=max(x for _, x in layer_excess),
-         logits_kernel_vs_plain_max_abs=err, logits_wrong_vs_plain_max_abs=wrong_err,
-         max_abs_logit=scale, tolerance=tol, argmax_agree=argmax_agree,
-         profile=profiles)
-    if not err <= tol:
-        raise AssertionError(f"logits with K2 differ from those with the plain "
-                             f"attention by {err} > {tol}")
-    if not wrong_err > tol:
-        raise AssertionError(f"a wrong attention moves the logits by only {wrong_err} "
-                             f"<= {tol}: the tolerance cannot tell it from rounding")
-    return k2_launches
+         fp32_logits_plain_q64_vs_plain_max_abs=floor, **gaps, **run)
+    return launches
 
 
 def main() -> int:
@@ -466,8 +696,10 @@ def main() -> int:
     phase_build()
     k1 = phase_k1()
     k2 = phase_k2()
+    k3 = phase_k3()
     k1_launches = phase_join()
     k2_launches = phase_serving()
+    hybrid = phase_hybrid()
     emit(phase="total", seconds=time.perf_counter() - t_start)
     kernels = [
         {"name": "event_join", "route": "cuda", "source": "src/repro_torch/csrc/event_join.cu",
@@ -476,7 +708,10 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
-         "launches": k2_launches, **k2},
+         "launches": k2_launches + hybrid["k2"], **k2},
+        {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd/ssd.py:78",
+         "launches": hybrid["k3"], **k3},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

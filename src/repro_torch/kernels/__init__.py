@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain torch version.
 
-``event_join`` replaces the Pallas kernel ``event_join_counts`` and
-``flash_attention`` replaces ``flash_attention_bhsd``; the sources live in
-``csrc/`` and are built at first use (``kernels._cuda``).
+``event_join`` replaces the Pallas kernel ``event_join_counts``,
+``flash_attention`` replaces ``flash_attention_bhsd`` and ``ssd`` replaces
+``ssd_scan``; the sources live in ``csrc/`` and are built at first use
+(``kernels._cuda``).
 """

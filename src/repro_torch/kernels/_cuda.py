@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("event_join", "flash_attention")
+SOURCES = ("event_join", "flash_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +40,12 @@ _SIGNATURES = {
          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
           _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _I, _P]),
         ("flash_attention_error_string", ctypes.c_char_p, [_I]),
+    ],
+    "ssd_scan": [
+        ("ssd_scan_launch", _I,
+         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P]),
+        ("ssd_scan_error_string", ctypes.c_char_p, [_I]),
     ],
 }
 

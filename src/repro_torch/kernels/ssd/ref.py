@@ -1,0 +1,92 @@
+"""Plain torch versions of the SSD scan kernel (``csrc/ssd_scan.cu``).
+
+Both take the model layout: x [B,S,H,P], dt [B,S,H] (> 0), B and C shared
+across heads as [B,S,N], a [H] (< 0); both return (y [B,S,H,P] in x's
+dtype, final state [B,H,N,P] in fp32).  Neither copies B or C per head.
+
+The recurrence is h_t = exp(a·dt_t)·h_{t-1} + dt_t·B_t⊗x_t, y_t = C_t·h_t.
+
+The JAX package's chunked path (``repro.models.ssm._ssd_chunked``) forms
+exp(L_i − L_j) for every (i, j) and masks it afterwards; for i < j the
+exponent is positive and overflows to inf once a chunk's summed a·dt passes
+about 88 (chunk 128 with a = −1 and dt ≈ softplus(N(0,1)) does), and
+inf·0 = NaN.  Here the exponent is masked to −inf before the exp, as the
+Pallas kernel selects before it multiplies, so the result is finite and
+equals the reference wherever the reference is finite.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def ssd_scan_torch(x, dt, Bm, Cm, a, chunk: int = 128,
+                   decay_dtype: torch.dtype = torch.float32):
+    """The kernel's chunked arithmetic in fp32, all chunks at once, then the
+    short recurrence of the chunk states.  Per chunk of Q = min(chunk, S)
+    steps: L = cumsum(a·dt); y = ((C·Bᵀ) ∘ exp(L_i − L_j) ∘ dt_j, i ≥ j)·x
+    + exp(L_i)·C·h_in; h_out = exp(L_last)·h_in + Σ_j exp(L_last − L_j)·dt_j
+    ·B_j⊗x_j.  A ragged last chunk is padded with dt = 0, which leaves the
+    result unchanged.  ``decay_dtype`` (the JAX package's hill-climb lever
+    on its CPU path; the kernel has none) sets the type of the decay tile
+    and of the intra-chunk product's operands, which accumulate in fp32."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    f32 = torch.float32
+    xf, dtf, Bf, Cf = x.to(f32), dt.to(f32), Bm.to(f32), Cm.to(f32)
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        Bf = F.pad(Bf, (0, 0, 0, pad))
+        Cf = F.pad(Cf, (0, 0, 0, pad))
+    xc = xf.reshape(Bsz, nc, Q, H, P)
+    Bc = Bf.reshape(Bsz, nc, Q, N)
+    Cc = Cf.reshape(Bsz, nc, Q, N)
+    dtc = dtf.reshape(Bsz, nc, Q, H)
+    L = torch.cumsum(dtc * a.to(f32), dim=2)              # [b,c,q,h]
+    Llast = L[:, :, -1]                                   # [b,c,h]
+
+    # intra-chunk (i >= j): the exponent is masked before the exp
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    Ld = L.to(decay_dtype)
+    diff = Ld[:, :, :, None, :] - Ld[:, :, None, :, :]    # [b,c,i,j,h]
+    causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(diff.masked_fill(~causal[:, :, None], float("-inf")))
+    xdt = xc * dtc[..., None]
+    y = torch.einsum("bcij,bcijh,bcjhp->bcihp", G.to(decay_dtype).to(f32),
+                     decay.to(f32), xdt.to(decay_dtype).to(f32))
+
+    # each chunk's own contribution to the state, then the chunk recurrence
+    w = torch.exp(Llast[:, :, None, :] - L) * dtc          # [b,c,q,h]
+    cs = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Bc, w, xc)
+    dec = torch.exp(Llast)                                # [b,c,h]
+    h = torch.zeros(Bsz, H, N, P, dtype=f32, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = dec[:, c, :, None, None] * h + cs[:, c]
+    h_in = torch.stack(h_in, dim=1)                       # [b,c,h,n,p]
+
+    # inter-chunk: y_i += exp(L_i)·C_i·h_in
+    y = y + torch.einsum("bcin,bchnp,bcih->bcihp", Cc, h_in, torch.exp(L))
+    return y.reshape(Bsz, nc * Q, H, P)[:, :S].to(x.dtype), h
+
+
+def ssd_scan_recurrence(x, dt, Bm, Cm, a):
+    """The time recurrence, one step at a time in fp32: the oracle, as
+    ``repro.kernels.ssd.ref.ssd_scan_ref`` is the JAX package's."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    f32 = torch.float32
+    a = a.to(f32)
+    h = torch.zeros(Bsz, H, N, P, dtype=f32, device=x.device)
+    ys = []
+    for t in range(S):
+        dt_t = dt[:, t].to(f32)                           # [b,h]
+        h = torch.exp(a * dt_t)[:, :, None, None] * h + torch.einsum(
+            "bh,bn,bhp->bhnp", dt_t, Bm[:, t].to(f32), x[:, t].to(f32))
+        ys.append(torch.einsum("bn,bhnp->bhp", Cm[:, t].to(f32), h))
+    return torch.stack(ys, dim=1).to(x.dtype), h

@@ -4,12 +4,16 @@
 dict of numpy arrays, as ``jax.device_get(unbox(model.init(key)))`` gives
 it — into the port's ``state_dict``.  The layouts are the same, so this is
 a rename (path parts joined by ``.``) plus a split of the stacked layer
-axis: ``layers/attn/wq[i]`` becomes ``layers.{i}.attn.wq``.  A bf16 leaf
+axis: ``layers/attn/wq[i]`` becomes ``layers.{i}.attn.wq``.  A model built
+with ``scan_layers=False`` (zamba2) has its layers unstacked already, as
+``layers/l{i}/…`` and ``shared_proj/s{i}``; they become ``layers.{i}.…``
+and ``shared_proj.{i}``.  A bf16 leaf
 arrives as an ``ml_dtypes.bfloat16`` array, which torch cannot read; it goes
 through fp32, which holds every bf16 value exactly.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -32,15 +36,21 @@ def _flatten(tree, prefix: str, out: Dict[str, Any]) -> None:
             out[name] = val
 
 
+# an unstacked layer or site: ``layers.l3.…`` → ``layers.3.…``
+_UNSTACKED = re.compile(r"^(layers|shared_proj)\.[ls](\d+)(\.|$)")
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     flat: Dict[str, Any] = {}
     _flatten(tree, "", flat)
     state: Dict[str, torch.Tensor] = {}
     for name, leaf in flat.items():
         head, _, rest = name.partition(".")
-        if head != "layers":
-            state[name] = _tensor(leaf)
-        else:
+        if _UNSTACKED.match(name):
+            state[_UNSTACKED.sub(r"\1.\2\3", name)] = _tensor(leaf)
+        elif head == "layers":
             for i, layer in enumerate(np.asarray(leaf)):
                 state[f"layers.{i}.{rest}"] = _tensor(layer)
+        else:
+            state[name] = _tensor(leaf)
     return state

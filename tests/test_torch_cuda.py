@@ -10,7 +10,10 @@ Tolerances: K1 counts integers (exact).  K2 and its plain version both
 compute in fp32 and differ only in the summation order, so in bf16 an
 output differs by at most one rounding flip, |got - want| <= 2**-7 |want|
 + 1e-3 (one bf16 ulp, with a floor for outputs near 0); in fp32 by at most
-1e-4 (summation order over up to 1024 keys).
+1e-4 (summation order over up to 1024 keys).  K3 and its plain version
+compute in fp32 in another order (the chunk's cumsum of a·dt included), so
+the state and fp32 outputs differ by at most 1e-4·(1 + max|want|), and bf16
+outputs by one rounding flip more, 2**-7 |want|.
 """
 import numpy as np
 import pytest
@@ -20,6 +23,8 @@ from repro_torch.kernels.event_join import ops as join_ops
 from repro_torch.kernels.event_join.ref import join_counts_torch
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_scan_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -61,3 +66,45 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, Dv, dtype,
     want = want.float()
     tol = 2.0 ** -7 * want.abs() + 1e-3 if dtype == torch.bfloat16 else 1e-4
     assert ((got.float() - want).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dtype,a_fixed", [
+    (1, 32, 2, 8, 4, 8, torch.float32, None),
+    (2, 64, 2, 16, 8, 16, torch.float32, None),
+    (1, 48, 4, 8, 8, 16, torch.float32, None),       # ragged
+    (2, 16, 1, 8, 4, 16, torch.float32, None),       # single chunk
+    (2, 300, 3, 64, 64, 128, torch.bfloat16, None),  # ragged, bf16, shared B/C
+    (2, 256, 4, 64, 64, 128, torch.float32, -1.0),   # where exp(L_i - L_j) overflows
+    (4, 1024, 64, 64, 64, 128, torch.bfloat16, None),  # zamba2-1.2b's prefill
+])
+def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype, a_fixed):
+    gen = torch.Generator(device=cuda).manual_seed(S + H)
+    # x is a strided view (every other head of a wider tensor), as the
+    # kernel reads it through its strides
+    x = (torch.randn(B, S, 2 * H, P, generator=gen, device=cuda) * 0.5).to(dtype)[:, :, ::2]
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen, device=cuda))
+    Bm, Cm = ((torch.randn(B, S, N, generator=gen, device=cuda) * 0.5).to(dtype)
+              for _ in range(2))
+    a = (torch.full((H,), a_fixed, device=cuda) if a_fixed is not None else
+         -torch.exp(torch.randn(H, generator=gen, device=cuda) * 0.3))
+    y, state = ssd_ops.ssd(x, dt, Bm, Cm, a, chunk=chunk)
+    want_y, want_state = ssd_scan_torch(x, dt, Bm, Cm, a, chunk=chunk)
+    assert y.dtype == dtype and y.shape == (B, S, H, P) and state.shape == (B, H, N, P)
+    floor = 1e-4 * (1 + want_y.float().abs().max().item())
+    tol = floor + (2.0 ** -7 * want_y.float().abs() if dtype == torch.bfloat16 else 0)
+    assert torch.isfinite(y).all() and ((y.float() - want_y.float()).abs() <= tol).all()
+    st_tol = 1e-4 * (1 + want_state.abs().max().item())
+    assert (state - want_state).abs().max().item() <= st_tol
+
+
+def test_ssd_kernel_rejects_what_it_does_not_cover(cuda):
+    x = torch.zeros(1, 256, 1, 128, device=cuda)
+    dt, a = torch.ones(1, 256, 1, device=cuda), -torch.ones(1, device=cuda)
+    Bm = torch.zeros(1, 256, 128, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_ops.ssd(x, dt, Bm, Bm, a, chunk=128)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_ops.ssd(x[..., :64], dt, Bm[..., :64], Bm[..., :64], a, chunk=256)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd_ops.ssd(x[..., :64], dt, Bm[..., :64], Bm[..., :64], a, chunk=128,
+                    decay_dtype=torch.bfloat16)

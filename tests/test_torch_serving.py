@@ -1,10 +1,11 @@
 """The slice as a whole: trigger-batched serving in the port against the
 JAX package's engine, on the CPU.
 
-Both engines serve the llama3.2-3b smoke config in fp32 with the same
-weights (the port loads the reference's through ``params_from_jax``), six
-requests with seeded prompt lengths, three to a batch.  Greedy tokens are
-integers: they must be identical per request id.
+Both engines serve the llama3.2-3b smoke config, and then the zamba2-1.2b
+(hybrid) smoke config, in fp32 with the same weights (the port loads the
+reference's through ``params_from_jax``), six requests with seeded prompt
+lengths, three to a batch.  Greedy tokens are integers: they must be
+identical per request id.
 """
 import dataclasses
 
@@ -27,13 +28,13 @@ def _prompts(seed=0, n=6, vocab=256):
     return [rng.integers(1, vocab, int(rng.integers(5, 41))).tolist() for _ in range(n)]
 
 
-def _engines(wf_ref="srv", wf_port="srv"):
+def _engines(wf_ref="srv", wf_port="srv", arch="llama3.2-3b"):
     ref = RefServingEngine(
-        dataclasses.replace(jax_get_config("llama3.2-3b", smoke=True), dtype=jnp.float32),
+        dataclasses.replace(jax_get_config(arch, smoke=True), dtype=jnp.float32),
         RefTriggerflow(inline_functions=True), wf_ref,
         max_batch=3, max_new_tokens=3, max_len=48)
     port = ServingEngine(
-        dataclasses.replace(get_config("llama3.2-3b", smoke=True), dtype=torch.float32),
+        dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32),
         Triggerflow(inline_functions=True, device="cpu"), wf_port,
         max_batch=3, max_new_tokens=3, max_len=48)
     port.model.load_state_dict(params_from_jax(jax.device_get(ref.params)), strict=True)
@@ -54,6 +55,21 @@ def _serve(eng, prompts):
 def test_port_serves_same_tokens_as_reference():
     ref, port = _engines()
     prompts = _prompts()
+    want = _serve(ref, prompts)
+    got = _serve(port, prompts)
+    assert ref.batches == port.batches == 2
+    assert len(got) == 6
+    assert got == want
+    for toks in got.values():
+        assert len(toks) == 3 and all(0 <= t < port.cfg.vocab for t in toks)
+
+
+def test_port_serves_same_tokens_as_reference_hybrid():
+    """zamba2-1.2b: every prefill runs Mamba2's chunked scan and the shared
+    attention block, every decode step the SSM recurrence."""
+    ref, port = _engines(arch="zamba2-1.2b")
+    assert port.cfg.family == "hybrid"
+    prompts = _prompts(seed=2)
     want = _serve(ref, prompts)
     got = _serve(port, prompts)
     assert ref.batches == port.batches == 2
