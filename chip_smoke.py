@@ -9,9 +9,14 @@ Phases, in order; any failure raises and the script exits non-zero:
              per source, all at once);
 2. K1        event_join against its plain torch version, exact, and timed
              beside torch.bincount (the yardstick, which the port never calls);
-3. K2        flash_attention against its plain torch version at the serving
-             shapes of llama3.2-3b and zamba2-1.2b, and timed at both beside
-             scaled_dot_product_attention (the yardstick only);
+3. K2        flash_attention's two kernels, each against its own plain torch
+             version: the scalar kernel (csrc/flash_attention.cu) on every
+             case, the sm90 kernel (csrc/flash_attention_sm90.cu, wgmma and
+             TMA) on every case that takes its route (bf16, D = Dv in
+             {64, 128}) and on more at the serving shapes; a misaligned view
+             must raise; both timed at the serving shapes of llama3.2-3b and
+             zamba2-1.2b beside scaled_dot_product_attention (the yardstick
+             only);
 4. K3        ssd_scan against its plain torch version (y and the final
              state) over chunks of 16, 64 and 128, ragged and single-chunk
              sequences, bf16 and fp32, and zamba2-1.2b's prefill shape; the
@@ -23,25 +28,27 @@ Phases, in order; any failure raises and the script exits non-zero:
              own card, the same final counts as the same run on the CPU
              with the plain torch backend;
 6. serving   llama3.2-3b at full width in bf16 with seeded random weights:
-             8 requests through ServingEngine under KedaAutoscaler, K2 on
-             every prefill layer; then, on the first batch, K2 against its
-             plain version at every layer's own inputs, and the logits at
-             every position with K2 against those with the plain attention
-             swapped in (and against a deliberately wrong attention, which
-             must fail the same tolerance);
+             8 requests through ServingEngine under KedaAutoscaler, K2's
+             sm90 kernel on every prefill layer; then, on the first batch, K2
+             against the sm90 route's plain version at every layer's own
+             inputs, and the logits at every position with K2 against those
+             with that plain attention swapped in (and against a deliberately
+             wrong attention, which must fail the same tolerance);
 7. hybrid    zamba2-1.2b at full width in bf16, the same 8 requests: K3 on
-             every Mamba2 prefill layer and K2 at every shared-attention
-             site; then, on the first batch, K3 against its plain version at
-             every layer's own inputs (bf16, as served), and the logits at
+             every Mamba2 prefill layer and K2's sm90 kernel at every
+             shared-attention site; then, on the first batch, K3 against its
+             plain version at every layer's own inputs (bf16, as served), and the logits at
              every position with K3, with the plain SSD swapped in, with the
              plain SSD at another chunk (equally right: the rounding floor)
              and with a deliberately wrong SSD (the plain version with the
              state between chunks dropped), with the activations in fp32:
              in bf16 rounding alone moves the logits of this 38-layer
-             random-weight model by O(1).
+             random-weight model by O(1).  These fp32 forwards take K2's
+             scalar route.
 
 Each kernel's launch count is set to 0 just before the path that should
-launch it (phases 5, 6 and 7) and read just after.  Earlier lines print JSON
+launch it (phases 5, 6 and 7, and the fp32 forwards of 7 for K2's scalar
+kernel) and read just after.  Earlier lines print JSON
 results, the card's name and power limit and a "kernels" line; the last line
 is {"ok": true, "device": {...}}.  Without CUDA, or away from the repo, it
 exits non-zero and prints no result.
@@ -83,32 +90,44 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters: int, top: int = 0) -> dict:
+# the model's kernels by the names of their device functions
+KERNEL_NAMES = {"k2_sm90": "flash_fwd_sm90", "k2_scalar": "flash_fwd<", "k3": "ssd_fwd"}
+
+
+def device_profile(fn, iters: int, top: int = 0, attempts: int = 3) -> dict:
     """Per call of ``fn``: host wall ms (ending in a synchronize), and from
     torch.profiler the summed time of its device activities (kernels,
-    copies, fills) and their number.  ``device_ms`` is None where the
-    profiler saw no device activity; wall_ms - device_ms is the device's
-    idle time on one stream."""
+    copies, fills) and their number, and the time of each of the model's
+    kernels (``kernel_ms``).  A profiling session now and then records no
+    device activity at all; such a session is run again, up to ``attempts``
+    sessions in all (``sessions`` says how many it took).  ``device_ms`` is
+    None where none of them saw device activity; wall_ms - device_ms is the
+    device's idle time on one stream."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / iters
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for session in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / iters
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
     dev_us = sum(e.device_time_total for e in events)
     out = {"wall_ms": wall, "device_ms": dev_us / 1e3 / iters if events else None,
-           "device_ops": len(events) / iters}
+           "device_ops": len(events) / iters, "sessions": session}
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    out["kernel_ms"] = {k: sum(us for name, us in by_name.items() if pat in name) / 1e3 / iters
+                        for k, pat in KERNEL_NAMES.items()}
     if top:
-        by_name: dict = {}
-        for e in events:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
         out["top_ms"] = [[name[:80], us / 1e3 / iters] for name, us in
                          sorted(by_name.items(), key=lambda kv: -kv[1])[:top]]
     return out
@@ -118,24 +137,31 @@ def kernel_times(iters: int, **fns) -> dict:
     """For each of ``ms`` (the kernel), ``plain_ms`` and ``library_ms``: the
     device time per call from the profiler, and beside it (``*event_ms``) the
     CUDA-event time per call of back-to-back calls, which is the host's time
-    where the host cannot keep the card busy."""
-    out = {}
+    where the host cannot keep the card busy.  Where no profiling session saw
+    device activity, the value is the CUDA-event time; ``timers`` says which
+    clock gave each value."""
+    out, timers = {}, {}
     for key, fn in fns.items():
         prof = device_profile(fn, iters)
+        event_ms = cuda_ms(fn, iters)
         if prof["device_ms"] is None:
-            raise AssertionError(f"{key}: the profiler saw no device activity")
-        out[key] = prof["device_ms"]
-        out[key.replace("ms", "event_ms")] = cuda_ms(fn, iters)
+            out[key], timers[key] = event_ms, "cuda_events"
+        else:
+            out[key], timers[key] = prof["device_ms"], f"profiler/{prof['sessions']}"
+        out[key.replace("ms", "event_ms")] = event_ms
+    out["timers"] = timers
     return out
 
 
 def attn_excess(got, want) -> tuple:
-    """(max |got - want|, max of |got - want| less its tolerance) for K2
-    against its plain version.  Both compute in fp32 and differ only in the
-    summation order, so in bf16 the outputs differ by at most one rounding
-    flip: |got - want| <= 2**-7 |want| + 1e-3, one bf16 ulp of each output
-    with a floor for outputs near 0.  In fp32: 1e-4 (summation order over up
-    to 1024 keys).  The check passes while the excess is <= 0."""
+    """(max |got - want|, max of |got - want| less its tolerance) for a K2
+    kernel against its own plain version.  Both compute in fp32 and differ
+    only in the summation order (and, on the sm90 route, in the rounding of
+    p's second bf16 term, within 2**-16 max|v|), so in bf16 the outputs
+    differ by at most one rounding flip: |got - want| <= 2**-7 |want| +
+    1e-3, one bf16 ulp of each output with a floor for outputs near 0.  In
+    fp32: 1e-4 (summation order over up to 1024 keys).  The check passes
+    while the excess is <= 0."""
     import torch
 
     d = (got.float() - want.float()).abs()
@@ -157,12 +183,13 @@ def phase_build():
     from repro_torch.kernels import _cuda
 
     t0 = time.perf_counter()
-    logs = _cuda.build()
+    built = _cuda.build()
     for name in _cuda.SOURCES:
         _cuda.library(name)
-    ptxas = [line.strip() for log in logs.values() for line in log.splitlines()
-             if "registers" in line or "spill" in line]
+    ptxas = [line.strip() for _, log in built.values() for line in log.splitlines()
+             if "registers" in line or "spill" in line or "warning" in line.lower()]
     emit(phase="build", seconds=time.perf_counter() - t0,
+         seconds_by_source={name: sec for name, (sec, _) in built.items()},
          dir=str(_cuda.build_dir()), ptxas=ptxas)
 
 
@@ -233,45 +260,81 @@ def phase_k2():
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_torch
 
-    cases = []
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = []  # the scalar kernel's cases, as before the sm90 route
     for S in (128, 1000, 1024):
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (bf16, f32):
             cases.append((4, S, 24, 8, 128, 128, dtype, True))
-    cases += [(2, 512, 16, 16, 128, 128, torch.bfloat16, True),    # MHA
-              (2, 512, 16, 1, 128, 128, torch.bfloat16, True),     # MQA
-              (2, 512, 24, 8, 128, 128, torch.bfloat16, False),    # non-causal
-              (2, 384, 16, 4, 192, 128, torch.float32, True),      # Dv != D
-              (4, 1024, 32, 32, 64, 64, torch.bfloat16, True)]     # zamba2-1.2b
+    cases += [(2, 512, 16, 16, 128, 128, bf16, True),    # MHA
+              (2, 512, 16, 1, 128, 128, bf16, True),     # MQA
+              (2, 512, 24, 8, 128, 128, bf16, False),    # non-causal
+              (2, 384, 16, 4, 192, 128, f32, True),      # Dv != D
+              (4, 1024, 32, 32, 64, 64, bf16, True)]     # zamba2-1.2b
+    # the sm90 kernel takes those of its route and these: S below one tile
+    # and at it at both serving shapes, zamba2-1.2b's ragged S, causal and
+    # not, and B 1 below one tile
+    sm90_only = [(4, 64, 24, 8, 128, 128, bf16, True),
+                 (4, 64, 32, 32, 64, 64, bf16, True),
+                 (4, 128, 32, 32, 64, 64, bf16, True),
+                 (4, 1000, 32, 32, 64, 64, bf16, True),
+                 (2, 1000, 32, 32, 64, 64, bf16, False),
+                 (1, 40, 4, 2, 64, 64, bf16, True)]
+    runs = [("scalar", c) for c in cases] + [("sm90", c) for c in cases + sm90_only
+                                             if c[6] == bf16 and c[4] == c[5]]
     results = []
-    max_err = 0.0
-    for i, (B, S, Hq, Hkv, D, Dv, dtype, causal) in enumerate(cases):
+    max_err = {"sm90": 0.0, "scalar": 0.0}
+    for i, (route, (B, S, Hq, Hkv, D, Dv, dtype, causal)) in enumerate(runs):
         q, k, v = _attn_inputs(B, S, Hq, Hkv, D, Dv, dtype, i)
-        got = ops.flash_attention(q, k, v, causal=causal)
-        want = flash_attention_torch(q, k, v, causal=causal)
+        name = f"{route} B{B} S{S} H{Hq}/{Hkv} D{D}/{Dv} {str(dtype)[6:]} causal={causal}"
+        if route == "scalar":
+            got = ops.flash_attention_scalar(q, k, v, causal=causal)
+            want = flash_attention_torch(q, k, v, causal=causal)
+        else:  # through the router, which must pick the sm90 kernel
+            n_sm90, n_scalar = ops.launches_sm90, ops.launches_scalar
+            got = ops.flash_attention(q, k, v, causal=causal)
+            if (ops.launches_sm90, ops.launches_scalar) != (n_sm90 + 1, n_scalar):
+                raise AssertionError(f"flash_attention {name}: did not take the sm90 route")
+            want = ops.flash_attention_plain(q, k, v, causal=causal)
         err, excess = attn_excess(got, want)
-        name = f"B{B} S{S} H{Hq}/{Hkv} D{D}/{Dv} {str(dtype)[6:]} causal={causal}"
         if not excess <= 0:
             raise AssertionError(f"flash_attention {name}: error {err} exceeds its "
                                  f"tolerance by {excess}")
-        max_err = max(max_err, err)
+        max_err[route] = max(max_err[route], err)
         results.append({"case": name, "max_abs_err": err, "excess": excess})
-    emit(phase="k2", cases=results)
+    # a q at an odd element offset cannot be a TMA source: the sm90 route raises
+    flat = torch.randn(4 * 128 * 24 * 128 + 1, device="cuda").to(bf16)
+    q, k, v = _attn_inputs(4, 128, 24, 8, 128, 128, bf16, 0)
+    n = ops.launches
+    try:
+        ops.flash_attention(flat[1:].view(q.shape), k, v)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("flash_attention launched on a misaligned q")
+    if ops.launches != n:
+        raise AssertionError("flash_attention counted a launch for a refused q")
+    emit(phase="k2", cases=results, misaligned_q=refused)
     # timing at the main paths' shapes: a serving prefill of 4 prompts padded
     # to 1024 tokens, bf16, causal, with llama3.2-3b's heads (the kernels
-    # line) and with zamba2-1.2b's
+    # line) and with zamba2-1.2b's; each kernel beside its own plain version
     timed = {}
     for arch, (Hq, Hkv, D) in (("llama3.2-3b", (24, 8, 128)), ("zamba2-1.2b", (32, 32, 64))):
         B, S = 4, 1024
-        q, k, v = _attn_inputs(B, S, Hq, Hkv, D, D, torch.bfloat16, 99)
-        times = kernel_times(10, ms=lambda: ops.flash_attention(q, k, v),
-                             plain_ms=lambda: flash_attention_torch(q, k, v),
-                             library_ms=_sdpa(q, k, v, True))
+        q, k, v = _attn_inputs(B, S, Hq, Hkv, D, D, bf16, 99)
+        sdpa = kernel_times(20, library_ms=_sdpa(q, k, v, True))
+        sm90 = kernel_times(20, ms=lambda: ops.flash_attention_sm90(q, k, v),
+                            plain_ms=lambda: ops.flash_attention_plain(q, k, v))
+        scalar = kernel_times(10, ms=lambda: ops.flash_attention_scalar(q, k, v),
+                              plain_ms=lambda: flash_attention_torch(q, k, v))
         flops = 2 * B * Hq * (D + D) * S * (S + 1) / 2     # the causal pairs only
         n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
         b, by = bound_ms(n_bytes, flops, "bfloat16")
-        emit(phase="k2_timing", arch=arch, shape=[B, S, Hq, Hkv, D],
-             tflops=flops / times["ms"] / 1e9, bound_ms=b, **times)
-        timed[arch] = {"max_abs_err": max_err, "bound_ms": b, "bound_by": by, **times}
+        for route, times in (("sm90", sm90), ("scalar", scalar)):
+            times = {**times, **sdpa, "timers": {**times["timers"], **sdpa["timers"]}}
+            emit(phase="k2_timing", arch=arch, route=route, shape=[B, S, Hq, Hkv, D],
+                 tflops=flops / times["ms"] / 1e9, bound_ms=b, **times)
+            timed.setdefault(arch, {})[route] = {"max_abs_err": max_err[route], "bound_ms": b,
+                                                 "bound_by": by, **times}
     return timed["llama3.2-3b"]
 
 
@@ -416,8 +479,9 @@ def phase_join():
 def _serve(cfg, counters):
     """Serve 8 seeded prompts of 128-1024 tokens, 4 to a batch, 16 new tokens
     each, through ServingEngine under KedaAutoscaler on the card.  Every
-    module of ``counters`` has its ``launches`` set to 0 just before the run
-    and read just after.  Then time the first batch's prefill and decode and
+    counter of ``counters`` (name: (module, attribute)) is set to 0 just
+    before the run and read just after.  Then time the first batch's prefill
+    and decode and
     profile both.  Returns the run's numbers and what the checks need."""
     import numpy as np
     import torch
@@ -436,8 +500,8 @@ def _serve(cfg, counters):
                for _ in range(8)]
 
     torch.cuda.reset_peak_memory_stats()
-    for mod in counters.values():
-        mod.launches = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     scaler = KedaAutoscaler(tf, poll_interval=0.05, grace_period=0.5).start()
     t0 = time.perf_counter()
     try:
@@ -456,7 +520,7 @@ def _serve(cfg, counters):
             time.sleep(0.01)
     finally:
         scaler.stop()
-    launches = {name: mod.launches for name, mod in counters.items()}
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     tf.shutdown()
     if eng.served != 8 or eng.batches != 2 or len(done) != 8:
@@ -537,7 +601,12 @@ def _logits_check(arch, full, what, rtol):
     return out
 
 
+K2_COUNTERS = ("launches", "launches_sm90", "launches_scalar")
+
+
 def phase_serving():
+    import functools
+
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_torch
@@ -547,34 +616,43 @@ def phase_serving():
     if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             cfg.d_ff, cfg.vocab) != (28, 3072, 24, 8, 128, 8192, 128256):
         raise AssertionError(f"llama3.2-3b is not at full width: {cfg}")
-    run, model, tokens = _serve(cfg, {"k2": fa_ops})
-    k2_launches = run["launches"]["k2"]
-    if k2_launches != 2 * cfg.n_layers:
-        raise AssertionError(f"K2 launched {k2_launches} times, want {2 * cfg.n_layers}")
+    run, model, tokens = _serve(cfg, {c: (fa_ops, c) for c in K2_COUNTERS})
+    launches = run["launches"]
+    want = {"launches": 2 * cfg.n_layers, "launches_sm90": 2 * cfg.n_layers,
+            "launches_scalar": 0}
+    if launches != want:
+        raise AssertionError(f"K2 launches {launches} in the llama3.2-3b run: every bf16 "
+                             f"prefill layer must take the sm90 route, want {want}")
 
-    # K2 against its plain version inside the full-width model: first every
-    # layer's own q, k, v at the kernel's tolerance, then the logits at every
-    # position of the first batch with K2, with the plain version and with a
-    # deliberately wrong attention (the plain version without its causal mask)
+    # K2 against the sm90 route's plain version inside the full-width model:
+    # first every layer's own q, k, v at the kernel's tolerance, then the
+    # logits at every position of the first batch with K2, with that plain
+    # version and with a deliberately wrong attention (the plain version
+    # without its causal mask)
     real = layers.flash_attention
+    plain = functools.partial(flash_attention_torch, **fa_ops.PLAIN_ARGS["sm90"])
     layer_excess = []
 
     def checked(q, k, v, causal=True):
+        if fa_ops.route(q, k, v) != "sm90":
+            raise AssertionError(f"a prefill layer's attention takes the "
+                                 f"{fa_ops.route(q, k, v)} route")
         got = real(q, k, v, causal=causal)
-        layer_excess.append(attn_excess(got, flash_attention_torch(q, k, v, causal=causal)))
+        layer_excess.append(attn_excess(got, plain(q, k, v, causal=causal)))
         return got
 
     def wrong(q, k, v, causal=True):
-        return flash_attention_torch(q, k, v, causal=False)
+        return plain(q, k, v, causal=False)
 
     full = _logits_by_variant(model, tokens, layers, "flash_attention",
-                      {"kernel": checked, "plain": flash_attention_torch, "wrong": wrong})
+                              {"kernel": checked, "plain": plain, "wrong": wrong})
     if len(layer_excess) != cfg.n_layers or max(x for _, x in layer_excess) > 0:
         raise AssertionError(f"K2 differs from its plain version inside the model: "
                              f"(max |error|, excess) per layer {layer_excess}")
     # bf16: one rounding flip in some outputs of each of 28 layers
     gaps = _logits_check(cfg.arch, full, "K2", 5e-2)
-    emit(phase="serving", k2_launches=k2_launches,
+    k2_launches = launches["launches_sm90"]
+    emit(phase="serving", k2_sm90_launches=k2_launches,
          layer_max_abs_err=max(e for e, _ in layer_excess),
          layer_max_excess=max(x for _, x in layer_excess), **gaps, **run)
     return k2_launches
@@ -614,11 +692,15 @@ def phase_hybrid():
             cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.vocab) != \
             ("hybrid", 38, 2048, 4096, 64, 64, 64, 128, 7, 32, 32, 64, 32000):
         raise AssertionError(f"zamba2-1.2b is not at full width: {cfg}")
-    run, model, tokens = _serve(cfg, {"k3": ssd_ops, "k2": fa_ops})
+    counters = {"k3": (ssd_ops, "launches"), **{c: (fa_ops, c) for c in K2_COUNTERS}}
+    run, model, tokens = _serve(cfg, counters)
     launches = run["launches"]
-    want = {"k3": 2 * cfg.n_layers, "k2": 2 * len(cfg.shared_sites())}
+    sites = len(cfg.shared_sites())
+    want = {"k3": 2 * cfg.n_layers, "launches": 2 * sites, "launches_sm90": 2 * sites,
+            "launches_scalar": 0}
     if launches != want:
-        raise AssertionError(f"launches {launches} in the hybrid run, want {want}")
+        raise AssertionError(f"launches {launches} in the hybrid run, want {want}: every "
+                             f"bf16 shared-attention site takes K2's sm90 route")
 
     # K3 against its plain version at each of the 38 layers' own inputs, in
     # bf16 as served, in one forward over the first batch
@@ -651,10 +733,17 @@ def phase_hybrid():
     variants = {"kernel": real, "plain": ssd_scan_torch, "plain_q64": plain_q64,
                 "wrong": _ssd_without_carry}
     model.cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    for c in K2_COUNTERS:
+        setattr(fa_ops, c, 0)
     try:
         fp32 = _logits_by_variant(model, tokens, ssm, "ssd", variants)
     finally:
         model.cfg = cfg
+    fp32_launches = {c: getattr(fa_ops, c) for c in K2_COUNTERS}
+    # four fp32 forwards over 7 sites each, all on the scalar route
+    want = {"launches": 4 * sites, "launches_sm90": 0, "launches_scalar": 4 * sites}
+    if fp32_launches != want:
+        raise AssertionError(f"K2 launches {fp32_launches} in the fp32 forwards, want {want}")
     floor = (fp32["plain_q64"] - fp32["plain"]).abs().max().item()
     # the floor is about 5e-4 of the largest logit (NVIDIA H100 80GB HBM3,
     # 700 W), so 1e-2 leaves a margin of 20; K3 must also stay within a few
@@ -664,11 +753,13 @@ def phase_hybrid():
         raise AssertionError(f"zamba2-1.2b: logits with K3 differ from those with the "
                              f"plain SSD by more than 4 times the rounding floor {floor}: "
                              f"{gaps}")
-    emit(phase="hybrid", k3_launches=launches["k3"], k2_launches=launches["k2"],
+    emit(phase="hybrid", k3_launches=launches["k3"], k2_sm90_launches=launches["launches_sm90"],
+         k2_launches_fp32_forwards=fp32_launches,
          layer_max_abs_err=max(e for e, _ in layer_excess),
          layer_max_excess=max(x for _, x in layer_excess),
          fp32_logits_plain_q64_vs_plain_max_abs=floor, **gaps, **run)
-    return launches
+    return {"k3": launches["k3"], "k2_sm90": launches["launches_sm90"],
+            "k2_scalar": fp32_launches["launches_scalar"]}
 
 
 def main() -> int:
@@ -705,14 +796,21 @@ def main() -> int:
         {"name": "event_join", "route": "cuda", "source": "src/repro_torch/csrc/event_join.cu",
          "replaces": "src/repro/kernels/event_join/event_join.py:51",
          "launches": k1_launches, **k1},
-        {"name": "flash_attention", "route": "cuda",
+        {"name": "flash_attention_sm90", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
+         "launches": k2_launches + hybrid["k2_sm90"], **k2["sm90"]},
+        {"name": "flash_attention_scalar", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
-         "launches": k2_launches + hybrid["k2"], **k2},
+         "launches": hybrid["k2_scalar"], **k2["scalar"]},
         {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd/ssd.py:78",
          "launches": hybrid["k3"], **k3},
     ]
+    idle = [kern["name"] for kern in kernels if not kern["launches"]]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main path: {idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

@@ -8,8 +8,9 @@ it).  The hash covers every source and the compiler flags, so an edited
 source rebuilds and an unchanged tree reuses its build.  ``build()`` starts
 one ``nvcc`` per source, all at once.
 
-Every C entry returns ``cudaGetLastError()`` after its launch; ``check``
-turns a nonzero code into an exception.
+Every C entry returns ``cudaGetLastError()`` after its launch, or a code of
+its own that its ``*_error_string`` names; ``check`` turns a nonzero code
+into an exception.
 """
 from __future__ import annotations
 
@@ -19,11 +20,13 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("event_join", "flash_attention", "ssd_scan")
+SOURCES = ("event_join", "flash_attention", "flash_attention_sm90", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +43,12 @@ _SIGNATURES = {
          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
           _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _I, _P]),
         ("flash_attention_error_string", ctypes.c_char_p, [_I]),
+    ],
+    "flash_attention_sm90": [
+        ("flash_attention_sm90_launch", _I,
+         [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+          _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _P]),
+        ("flash_attention_sm90_error_string", ctypes.c_char_p, [_I]),
     ],
     "ssd_scan": [
         ("ssd_scan_launch", _I,
@@ -70,34 +79,32 @@ def _nvcc() -> str:
     return exe
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
     """Compile each named source that is not built yet, one ``nvcc`` process
-    per source, all started together.  Returns ``{name: compiler output}``
-    (``-Xptxas -v``: registers, shared memory and spills per kernel)."""
+    per source, all started together.  Returns ``{name: (seconds, compiler
+    output)}`` for the sources it compiled (``-Xptxas -v``: registers, shared
+    memory and spills per kernel)."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    started = []
-    for name in names:
-        so = out / f"lib{name}.so"
-        if so.exists():
-            continue
+
+    def compile_one(name):
         tmp = out / f"lib{name}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        started.append((name, so, tmp, cmd, proc))
-    logs = {}
-    failed = []
-    for name, so, tmp, cmd, proc in started:
-        log, _ = proc.communicate()
-        logs[name] = log
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        seconds = time.perf_counter() - t0
         if proc.returncode:
-            failed.append(f"{' '.join(cmd)} exited {proc.returncode}:\n{log}")
-        else:
-            os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+            return name, seconds, proc.stdout, f"{' '.join(cmd)} exited {proc.returncode}"
+        os.replace(tmp, out / f"lib{name}.so")  # atomic: a loader never sees half a file
+        return name, seconds, proc.stdout, None
+
+    todo = [name for name in names if not (out / f"lib{name}.so").exists()]
+    with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
+        results = list(pool.map(compile_one, todo))
+    failed = [f"{err}:\n{log}" for _, _, log, err in results if err]
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return logs
+    return {name: (seconds, log) for name, seconds, log, _ in results}
 
 
 def library(name: str) -> ctypes.CDLL:

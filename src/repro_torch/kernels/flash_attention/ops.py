@@ -1,10 +1,22 @@
-"""Wrapper of the flash attention kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the two flash attention kernels.
 
 ``flash_attention`` keeps the reference's [B,S,H,D] layout at its interface.
-On CUDA tensors it launches the kernel, which reads q, k and v through their
-strides (no transpose copies); on CPU tensors it runs the kernel's plain
-version, ``ref.flash_attention_torch``.  ``launches`` counts the kernel's
-launches.
+On CUDA tensors it launches one of two hand-written kernels, which ``route``
+picks from dtype and shape alone, before any launch:
+
+- ``"sm90"`` (``csrc/flash_attention_sm90.cu``): bf16 with D == Dv in
+  {64, 128}, the prefill attention of both served models.  wgmma tensor
+  cores and TMA loads; q, k and v must meet TMA's conditions
+  (``tma_check``), or the wrapper raises ``ValueError``.
+- ``"scalar"`` (``csrc/flash_attention.cu``): every other input (fp32, other
+  head dims, Dv != D), on the CUDA cores.
+
+No route falls back to another, and nothing falls back to the plain
+version: a refused input or a failed launch raises.  On CPU tensors
+``flash_attention`` runs the plain version of the route the inputs would
+take on the card (``flash_attention_plain``).  ``launches`` counts the
+launches of both kernels, ``launches_sm90`` and ``launches_scalar`` each
+route's.
 """
 from __future__ import annotations
 
@@ -13,12 +25,18 @@ import math
 import torch
 
 from .. import _cuda
-from .ref import flash_attention_torch
+from .ref import SM90_BLOCK_K, flash_attention_torch
 
 launches = 0
+launches_sm90 = 0
+launches_scalar = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
+SM90_HEAD_DIMS = (64, 128)
+# each route's plain version: the arguments of flash_attention_torch
+PLAIN_ARGS = {"sm90": {"p_split": True, "block_k": SM90_BLOCK_K},
+              "scalar": {}}
 
 
 def _check(q, k, v) -> None:
@@ -38,14 +56,85 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_attention: q, k and v must be on one device")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """q [B,S,Hq,D], k [B,S,Hkv,D], v [B,S,Hkv,Dv] → [B,S,Hq,Dv] in q's
-    dtype; query head h reads kv head h // (Hq // Hkv)."""
-    global launches
+def route(q, k, v) -> str:
+    """The kernel that ``flash_attention`` launches for q, k, v on CUDA,
+    from dtype and shape alone: ``"sm90"`` for bf16 with D == Dv in
+    {64, 128}, ``"scalar"`` for everything else."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    if q.dtype == torch.bfloat16 and D == Dv and D in SM90_HEAD_DIMS:
+        return "sm90"
+    return "scalar"
+
+
+def flash_attention_plain(q, k, v, causal: bool = True):
+    """The plain version of the route that q, k, v take: the sm90 route
+    splits p into two bf16 terms over kv tiles of 128, the scalar route
+    keeps it fp32 over tiles of 32."""
+    return flash_attention_torch(q, k, v, causal=causal, **PLAIN_ARGS[route(q, k, v)])
+
+
+def _tma_strides(t) -> tuple:
+    """t's element strides of B, S and H; a dim of size 1 takes the dense
+    stride, since its own stride is never stepped."""
+    strides = []
+    dense = t.shape[3]
+    for dim in (2, 1, 0):
+        strides.append(t.stride(dim) if t.shape[dim] > 1 else dense)
+        dense = strides[-1] * t.shape[dim]
+    return tuple(reversed(strides))
+
+
+def tma_check(q, k, v) -> None:
+    """Raise ``ValueError`` unless q, k and v meet what the sm90 kernel's
+    TMA loads need: base addresses 16-byte aligned, the last dim contiguous
+    and the strides of B, S and H multiples of 16 bytes.  Reads pointers and
+    strides only, so it runs on any device."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        size = t.element_size()
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention sm90: {name}'s base address is not "
+                             f"16-byte aligned (offset {t.data_ptr() % 16})")
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention sm90: the last dim of {name} must be "
+                             f"contiguous")
+        for dim, stride in zip("BSH", _tma_strides(t)):
+            if stride * size % 16:
+                raise ValueError(f"flash_attention sm90: {name}'s {dim} stride of "
+                                 f"{stride * size} bytes is not a multiple of 16")
+
+
+def flash_attention_sm90(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Launch csrc/flash_attention_sm90.cu on CUDA tensors that take the
+    sm90 route and meet ``tma_check``; raise ``ValueError`` otherwise."""
+    global launches, launches_sm90
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_torch(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention sm90: no kernel for device {q.device}")
+    if route(q, k, v) != "sm90":
+        raise ValueError(f"flash_attention sm90: takes bf16 with D == Dv in "
+                         f"{SM90_HEAD_DIMS}, not {q.dtype} with D {q.shape[3]}, "
+                         f"Dv {v.shape[3]}")
+    tma_check(q, k, v)
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    out = torch.empty(B, S, Hq, D, dtype=q.dtype, device=q.device)
+    lib = _cuda.library("flash_attention_sm90")
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_sm90_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, Hq, Hkv, D, *_tma_strides(q), *_tma_strides(k), *_tma_strides(v),
+            int(causal), 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+    _cuda.check(err, lib, "flash_attention_sm90")
+    launches += 1
+    launches_sm90 += 1
+    return out
+
+
+def flash_attention_scalar(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Launch csrc/flash_attention.cu on CUDA tensors of either dtype and
+    head dims up to 256."""
+    global launches, launches_scalar
+    _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     B, S, Hq, D = q.shape
@@ -68,4 +157,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     _cuda.check(err, lib, "flash_attention")
     launches += 1
+    launches_scalar += 1
     return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q [B,S,Hq,D], k [B,S,Hkv,D], v [B,S,Hkv,Dv] → [B,S,Hq,Dv] in q's
+    dtype; query head h reads kv head h // (Hq // Hkv)."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if route(q, k, v) == "sm90":
+        return flash_attention_sm90(q, k, v, causal=causal)
+    return flash_attention_scalar(q, k, v, causal=causal)

@@ -6,11 +6,14 @@ package, so it also runs on a machine without them:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1 counts integers (exact).  K2 and its plain version both
-compute in fp32 and differ only in the summation order, so in bf16 an
-output differs by at most one rounding flip, |got - want| <= 2**-7 |want|
-+ 1e-3 (one bf16 ulp, with a floor for outputs near 0); in fp32 by at most
-1e-4 (summation order over up to 1024 keys).  K3 and its plain version
+Tolerances: K1 counts integers (exact).  K2 has two routes, each held
+against its own plain version (the sm90 one splits p into two bf16 terms
+for P·V over kv tiles of 128, as the kernel does).  Kernel and plain version
+both compute in fp32 and differ only in the summation order (and in the
+rounding of p's second term, within 2**-16 max|v|), so in bf16 an output
+differs by at most one rounding flip, |got - want| <= 2**-7 |want| + 1e-3
+(one bf16 ulp, with a floor for outputs near 0); in fp32 by at most 1e-4
+(summation order over up to 1024 keys).  K3 and its plain version
 compute in fp32 in another order (the chunk's cumsum of a·dt included), so
 the state and fp32 outputs differ by at most 1e-4·(1 + max|want|), and bf16
 outputs by one rounding flip more, 2**-7 |want|.
@@ -58,14 +61,70 @@ def test_event_join_kernel_matches_plain(cuda, T, N):
     (1, 300, 4, 2, 256, 256, torch.float32, True),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, Dv, dtype, causal):
+    """The scalar kernel, called by its own launcher (the bf16 D 128 case
+    takes the sm90 route through flash_attention)."""
     gen = torch.Generator(device=cuda).manual_seed(S)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
                for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, Dv)))
-    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    got = fa_ops.flash_attention_scalar(q, k, v, causal=causal)
     want = flash_attention_torch(q, k, v, causal=causal)
     want = want.float()
     tol = 2.0 ** -7 * want.abs() + 1e-3 if dtype == torch.bfloat16 else 1e-4
     assert ((got.float() - want).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", [
+    (2, 64, 24, 8, 128, True),     # llama3.2-3b's heads, S below, at, past one tile
+    (2, 128, 24, 8, 128, True),
+    (2, 1000, 24, 8, 128, True),
+    (2, 1024, 24, 8, 128, True),
+    (2, 64, 32, 32, 64, True),     # zamba2-1.2b's heads
+    (2, 128, 32, 32, 64, True),
+    (2, 1000, 32, 32, 64, True),
+    (2, 1024, 32, 32, 64, True),
+    (2, 512, 16, 16, 128, True),   # MHA
+    (2, 512, 16, 1, 128, True),    # MQA
+    (2, 512, 24, 8, 128, False),   # non-causal
+    (2, 1000, 32, 32, 64, False),  # non-causal, ragged
+    (1, 40, 4, 2, 64, True),       # B 1, S below one tile
+])
+def test_flash_attention_sm90_matches_plain(cuda, B, S, Hq, Hkv, D, causal):
+    gen = torch.Generator(device=cuda).manual_seed(S + D)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+               for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    assert fa_ops.route(q, k, v) == "sm90"
+    sm90, scalar = fa_ops.launches_sm90, fa_ops.launches_scalar
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    assert (fa_ops.launches_sm90, fa_ops.launches_scalar) == (sm90 + 1, scalar)
+    want = fa_ops.flash_attention_plain(q, k, v, causal=causal).float()
+    assert torch.isfinite(got).all() and got.shape == (B, S, Hq, D)
+    assert ((got.float() - want).abs() <= 2.0 ** -7 * want.abs() + 1e-3).all()
+
+
+def test_flash_attention_sm90_reads_strided_views(cuda):
+    """q, k and v as head slices of one fused [B,S,Hq+2Hkv,D] tensor: the
+    tensor maps take their strides, nothing is copied."""
+    B, S, Hq, Hkv, D = 2, 300, 8, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn(B, S, Hq + 2 * Hkv, D, generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv], qkv[:, :, Hq + Hkv:]
+    got = fa_ops.flash_attention(q, k, v)
+    want = fa_ops.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous()).float()
+    assert ((got.float() - want).abs() <= 2.0 ** -7 * want.abs() + 1e-3).all()
+
+
+def test_flash_attention_sm90_refuses_misaligned_views(cuda):
+    B, S, H, D = 1, 256, 4, 128
+    flat = torch.randn(B * S * H * D + 1, device=cuda).to(torch.bfloat16)
+    q = flat[1:].view(B, S, H, D)          # an odd element offset: 2 bytes off
+    k = torch.randn(B, S, H, D, device=cuda).to(torch.bfloat16)
+    before = fa_ops.launches
+    with pytest.raises(ValueError, match="aligned"):
+        fa_ops.flash_attention(q, k, k)
+    wide = torch.randn(B, S, H, D + 1, device=cuda).to(torch.bfloat16)[..., :D]
+    with pytest.raises(ValueError, match="stride"):
+        fa_ops.flash_attention(k, wide, k)
+    assert fa_ops.launches == before
 
 
 @pytest.mark.parametrize("B,S,H,P,N,chunk,dtype,a_fixed", [
