@@ -17,12 +17,17 @@ Phases, in order; any failure raises and the script exits non-zero:
              must raise; both timed at the serving shapes of llama3.2-3b and
              zamba2-1.2b beside scaled_dot_product_attention (the yardstick
              only);
-4. K3        ssd_scan against its plain torch version (y and the final
-             state) over chunks of 16, 64 and 128, ragged and single-chunk
-             sequences, bf16 and fp32, and zamba2-1.2b's prefill shape; the
-             plain version against the time recurrence; K3 timed at the
-             prefill shape (no single PyTorch call computes the SSD scan,
-             so there is no yardstick);
+4. K3        ssd_scan's two kernels, each against its own plain torch
+             version (y and the final state): the scalar kernel
+             (csrc/ssd_scan.cu) over chunks of 16, 64 and 128, ragged and
+             single-chunk sequences, bf16 and fp32, and zamba2-1.2b's prefill
+             shape; the sm90 kernel (csrc/ssd_scan_sm90.cu, mma.sync tensor
+             cores, three kernels split over chunks) on every case that
+             takes its route (bf16, N = P = 64) and on two more at the
+             serving shape; a misaligned view must raise; the plain version
+             against the time recurrence; both timed at the prefill shape (no
+             single PyTorch call computes the SSD scan, so there is no
+             yardstick);
 5. join      the Table-1 join (100 triggers x 2000 events) through the port's
              Triggerflow on the card: 100 fires through K1 on the worker's
              own card, the same final counts as the same run on the CPU
@@ -34,21 +39,23 @@ Phases, in order; any failure raises and the script exits non-zero:
              inputs, and the logits at every position with K2 against those
              with that plain attention swapped in (and against a deliberately
              wrong attention, which must fail the same tolerance);
-7. hybrid    zamba2-1.2b at full width in bf16, the same 8 requests: K3 on
-             every Mamba2 prefill layer and K2's sm90 kernel at every
-             shared-attention site; then, on the first batch, K3 against its
-             plain version at every layer's own inputs (bf16, as served), and the logits at
+7. hybrid    zamba2-1.2b at full width in bf16, the same 8 requests: K3's
+             sm90 kernel on every Mamba2 prefill layer and K2's sm90 kernel
+             at every shared-attention site; then, on the first batch, K3
+             against the sm90 route's plain version at every layer's own
+             inputs (bf16, as served), where the SSD without its state
+             between chunks must fail the same check; and the logits at
              every position with K3, with the plain SSD swapped in, with the
              plain SSD at another chunk (equally right: the rounding floor)
              and with a deliberately wrong SSD (the plain version with the
              state between chunks dropped), with the activations in fp32:
              in bf16 rounding alone moves the logits of this 38-layer
-             random-weight model by O(1).  These fp32 forwards take K2's
-             scalar route.
+             random-weight model by O(1).  These fp32 forwards take the
+             scalar routes of K2 and K3.
 
 Each kernel's launch count is set to 0 just before the path that should
-launch it (phases 5, 6 and 7, and the fp32 forwards of 7 for K2's scalar
-kernel) and read just after.  Earlier lines print JSON
+launch it (phases 5, 6 and 7, and the fp32 forwards of 7 for the scalar
+kernels of K2 and K3) and read just after.  Earlier lines print JSON
 results, the card's name and power limit and a "kernels" line; the last line
 is {"ok": true, "device": {...}}.  Without CUDA, or away from the repo, it
 exits non-zero and prints no result.
@@ -91,7 +98,8 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 # the model's kernels by the names of their device functions
-KERNEL_NAMES = {"k2_sm90": "flash_fwd_sm90", "k2_scalar": "flash_fwd<", "k3": "ssd_fwd"}
+KERNEL_NAMES = {"k2_sm90": "flash_fwd_sm90", "k2_scalar": "flash_fwd<",
+                "k3_sm90": "ssd_sm90_", "k3_scalar": "ssd_fwd<"}
 
 
 def device_profile(fn, iters: int, top: int = 0, attempts: int = 3) -> dict:
@@ -383,46 +391,85 @@ def phase_k3():
              (2, 512, 8, 64, 64, 128, f32),
              (2, 1000, 8, 64, 64, 128, bf16),    # ragged at 128
              (4, 1024, 64, 64, 64, 128, bf16)]   # zamba2-1.2b's prefill
+    # the scalar kernel takes every case (by its own launcher), the sm90
+    # kernel those of its route (through the router) and two more at the
+    # serving shape with other seeds
+    runs = [("scalar", i, c) for i, c in enumerate(cases)]
+    runs += [("sm90", i, c) for i, c in enumerate(cases)
+             if c[6] == bf16 and c[3] == c[4] == 64]
+    runs += [("sm90", seed, (4, 1024, 64, 64, 64, 128, bf16)) for seed in (101, 102)]
     results = []
-    max_err = 0.0
-    for i, (B, S, H, P, N, chunk, dtype) in enumerate(cases):
-        inputs = _ssd_inputs(B, S, H, P, N, dtype, i)
-        y, state = ops.ssd(*inputs, chunk=chunk)
-        want_y, want_state = ssd_scan_torch(*inputs, chunk=chunk)
+    max_err = {"sm90": 0.0, "scalar": 0.0}
+    for route, seed, (B, S, H, P, N, chunk, dtype) in runs:
+        inputs = _ssd_inputs(B, S, H, P, N, dtype, seed)
+        name = f"{route} B{B} S{S} H{H} P{P} N{N} Q{chunk} {str(dtype)[6:]} seed {seed}"
+        if route == "scalar":
+            y, state = ops.ssd_scalar(*inputs, chunk=chunk)
+            want_y, want_state = ssd_scan_torch(*inputs, chunk=chunk)
+        else:
+            n_sm90, n_scalar = ops.launches_sm90, ops.launches_scalar
+            y, state = ops.ssd(*inputs, chunk=chunk)
+            if (ops.launches_sm90, ops.launches_scalar) != (n_sm90 + 1, n_scalar):
+                raise AssertionError(f"ssd_scan {name}: did not take the sm90 route")
+            want_y, want_state = ops.ssd_plain(*inputs, chunk=chunk)
         (ey, xy), (es, xs) = ssd_excess(y, want_y), ssd_excess(state, want_state)
-        name = f"B{B} S{S} H{H} P{P} N{N} Q{chunk} {str(dtype)[6:]}"
         if not (xy <= 0 and xs <= 0 and y.dtype == dtype):
             raise AssertionError(f"ssd_scan {name}: y error {ey} (excess {xy}), state "
                                  f"error {es} (excess {xs})")
-        max_err = max(max_err, ey, es)
+        max_err[route] = max(max_err[route], ey, es)
         results.append({"case": name, "y_max_abs_err": ey, "state_max_abs_err": es,
                         "y_excess": xy, "state_excess": xs})
+    # an x at an odd element offset cannot feed the 16-byte copies: the sm90
+    # route raises
+    x, dt, Bm, Cm, a = _ssd_inputs(2, 128, 4, 64, 64, bf16, 0)
+    flat = torch.zeros(x.numel() + 1, device="cuda", dtype=bf16)
+    n = ops.launches
+    try:
+        ops.ssd(flat[1:].view(x.shape), dt, Bm, Cm, a)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("ssd launched on a misaligned x")
+    if ops.launches != n:
+        raise AssertionError("ssd counted a launch for a refused x")
     # the plain version against the step-by-step recurrence
     inputs = _ssd_inputs(2, 256, 4, 32, 16, f32, 77)
     (y, state), (ry, rstate) = ssd_scan_torch(*inputs, chunk=64), ssd_scan_recurrence(*inputs)
     rec = max(ssd_excess(y, ry)[1], ssd_excess(state, rstate)[1])
     if not rec <= 0:
         raise AssertionError(f"ssd_scan_torch differs from the recurrence (excess {rec})")
-    emit(phase="k3", cases=results, plain_vs_recurrence_excess=rec)
+    emit(phase="k3", cases=results, misaligned_x=refused, plain_vs_recurrence_excess=rec)
     # timing at the main path's shape: zamba2-1.2b's prefill of 4 prompts
-    # padded to 1024 tokens, 64 heads of P = 64, N = 64, chunk 128
+    # padded to 1024 tokens, 64 heads of P = 64, N = 64, chunk 128; each
+    # kernel beside its own plain version
     B, S, H, P, N, Q = 4, 1024, 64, 64, 64, 128
     x, dt, Bm, Cm, a = _ssd_inputs(B, S, H, P, N, bf16, 99)
     x = x.contiguous()
-    times = kernel_times(20, ms=lambda: ops.ssd(x, dt, Bm, Cm, a, chunk=Q),
-                         plain_ms=lambda: ssd_scan_torch(x, dt, Bm, Cm, a, chunk=Q))
+    timed = {
+        "sm90": kernel_times(20, ms=lambda: ops.ssd_sm90(x, dt, Bm, Cm, a, chunk=Q),
+                             plain_ms=lambda: ops.ssd_plain(x, dt, Bm, Cm, a, chunk=Q)),
+        "scalar": kernel_times(20, ms=lambda: ops.ssd_scalar(x, dt, Bm, Cm, a, chunk=Q),
+                               plain_ms=lambda: ssd_scan_torch(x, dt, Bm, Cm, a, chunk=Q)),
+    }
+    # the sm90 route's three kernels apart
+    split = device_profile(lambda: ops.ssd_sm90(x, dt, Bm, Cm, a, chunk=Q), 20, top=3)
     # per (b, h) and chunk of q steps: C·Bᵀ and the mixing tile times x over
-    # the causal pairs only (the kernel skips the rest), C·h and the state
+    # the causal pairs only (the kernels skip the rest), C·h and the state
     # update over all q steps
     chunks = [min(Q, S - s0) for s0 in range(0, S, Q)]
     flops = sum(2 * (q * (q + 1) // 2 * (N + P) + 2 * q * N * P) for q in chunks) * B * H
     n_bytes = (2 * 2 * x.numel() + 4 * dt.numel() + 2 * (Bm.numel() + Cm.numel())
                + 4 * B * H * N * P + 4 * H)
     b, by = bound_ms(n_bytes, flops, "tfloat32")
-    emit(phase="k3_timing", shape=[B, S, H, P, N, Q], gflop=flops / 1e9, mbytes=n_bytes / 1e6,
-         tflops=flops / times["ms"] / 1e9, bound_ms=b, bound_by=by, **times)
-    return {"max_abs_err": max_err, "bound_ms": b, "bound_by": by, "library_ms": None,
-            **times}
+    out = {}
+    for route, times in timed.items():
+        extra = {"sm90_kernels_ms": split["top_ms"]} if route == "sm90" else {}
+        emit(phase="k3_timing", route=route, shape=[B, S, H, P, N, Q], gflop=flops / 1e9,
+             mbytes=n_bytes / 1e6, tflops=flops / times["ms"] / 1e9, bound_ms=b, bound_by=by,
+             **extra, **times)
+        out[route] = {"max_abs_err": max_err[route], "bound_ms": b, "bound_by": by,
+                      "library_ms": None, **times}
+    return out
 
 
 def _join_run(device, n_triggers=100, events_each=2000):
@@ -601,7 +648,8 @@ def _logits_check(arch, full, what, rtol):
     return out
 
 
-K2_COUNTERS = ("launches", "launches_sm90", "launches_scalar")
+# K2's and K3's wrappers each count their launches under these names
+COUNTERS = ("launches", "launches_sm90", "launches_scalar")
 
 
 def phase_serving():
@@ -616,7 +664,7 @@ def phase_serving():
     if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             cfg.d_ff, cfg.vocab) != (28, 3072, 24, 8, 128, 8192, 128256):
         raise AssertionError(f"llama3.2-3b is not at full width: {cfg}")
-    run, model, tokens = _serve(cfg, {c: (fa_ops, c) for c in K2_COUNTERS})
+    run, model, tokens = _serve(cfg, {c: (fa_ops, c) for c in COUNTERS})
     launches = run["launches"]
     want = {"launches": 2 * cfg.n_layers, "launches_sm90": 2 * cfg.n_layers,
             "launches_scalar": 0}
@@ -692,32 +740,48 @@ def phase_hybrid():
             cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.vocab) != \
             ("hybrid", 38, 2048, 4096, 64, 64, 64, 128, 7, 32, 32, 64, 32000):
         raise AssertionError(f"zamba2-1.2b is not at full width: {cfg}")
-    counters = {"k3": (ssd_ops, "launches"), **{c: (fa_ops, c) for c in K2_COUNTERS}}
+    counters = {"k3": (ssd_ops, "launches"), "k3_sm90": (ssd_ops, "launches_sm90"),
+                "k3_scalar": (ssd_ops, "launches_scalar"),
+                **{c: (fa_ops, c) for c in COUNTERS}}
     run, model, tokens = _serve(cfg, counters)
     launches = run["launches"]
     sites = len(cfg.shared_sites())
-    want = {"k3": 2 * cfg.n_layers, "launches": 2 * sites, "launches_sm90": 2 * sites,
-            "launches_scalar": 0}
+    want = {"k3": 2 * cfg.n_layers, "k3_sm90": 2 * cfg.n_layers, "k3_scalar": 0,
+            "launches": 2 * sites, "launches_sm90": 2 * sites, "launches_scalar": 0}
     if launches != want:
-        raise AssertionError(f"launches {launches} in the hybrid run, want {want}: every "
-                             f"bf16 shared-attention site takes K2's sm90 route")
+        raise AssertionError(f"launches {launches} in the hybrid run, want {want}: every bf16 "
+                             f"Mamba2 layer takes K3's sm90 route and every bf16 "
+                             f"shared-attention site K2's")
 
-    # K3 against its plain version at each of the 38 layers' own inputs, in
-    # bf16 as served, in one forward over the first batch
+    # K3 against the sm90 route's plain version at each of the 38 layers' own
+    # inputs, in bf16 as served, in one forward over the first batch; the SSD
+    # without its state between chunks must fail the same check at some
+    # layer, which shows that the check can tell a wrong scan from rounding
     real = ssm.ssd
-    layer_excess = []
+    layer_excess, wrong_excess = [], []
+
+    def excess(got, want):
+        (ey, xy), (es, xs) = ssd_excess(got[0], want[0]), ssd_excess(got[1], want[1])
+        return max(ey, es), max(xy, xs)
 
     def checked(x, dt, Bm, Cm, a, chunk, decay_dtype):
-        y, state = real(x, dt, Bm, Cm, a, chunk, decay_dtype)
-        want_y, want_state = ssd_scan_torch(x, dt, Bm, Cm, a, chunk, decay_dtype)
-        (ey, xy), (es, xs) = ssd_excess(y, want_y), ssd_excess(state, want_state)
-        layer_excess.append((max(ey, es), max(xy, xs)))
-        return y, state
+        if ssd_ops.route(x, Bm) != "sm90":
+            raise AssertionError(f"a Mamba2 layer's SSD takes the {ssd_ops.route(x, Bm)} "
+                                 f"route")
+        got = real(x, dt, Bm, Cm, a, chunk, decay_dtype)
+        want = ssd_ops.ssd_plain(x, dt, Bm, Cm, a, chunk, decay_dtype)
+        layer_excess.append(excess(got, want))
+        wrong_excess.append(excess(_ssd_without_carry(x, dt, Bm, Cm, a, chunk, decay_dtype),
+                                   want))
+        return got
 
     bf16 = _logits_by_variant(model, tokens, ssm, "ssd", {"kernel": checked})["kernel"]
     if len(layer_excess) != cfg.n_layers or max(x for _, x in layer_excess) > 0:
         raise AssertionError(f"K3 differs from its plain version inside the model: "
                              f"(max |error|, excess) per layer {layer_excess}")
+    if not max(x for _, x in wrong_excess) > 0:
+        raise AssertionError(f"the SSD without its carried state passes the per-layer K3 "
+                             f"check at every layer: {wrong_excess}")
     if not torch.isfinite(bf16).all():
         raise AssertionError("zamba2-1.2b: bf16 forward logits with K3 are not finite")
     del bf16
@@ -726,24 +790,30 @@ def phase_hybrid():
     # is 2**16 times smaller than in bf16: with K3, with the plain SSD, with
     # the plain SSD at chunk 64 (equally right, so its gap to the plain SSD
     # at chunk 128 is the floor that rounding reaches through 38 layers) and
-    # with the SSD without its state between chunks.
+    # with the SSD without its state between chunks.  Only the first of the
+    # four calls the kernels of K3; all four call K2's.
     def plain_q64(x, dt, Bm, Cm, a, chunk, decay_dtype):
         return ssd_scan_torch(x, dt, Bm, Cm, a, 64, decay_dtype)
 
     variants = {"kernel": real, "plain": ssd_scan_torch, "plain_q64": plain_q64,
                 "wrong": _ssd_without_carry}
     model.cfg = dataclasses.replace(cfg, dtype=torch.float32)
-    for c in K2_COUNTERS:
+    for c in COUNTERS:
         setattr(fa_ops, c, 0)
+        setattr(ssd_ops, c, 0)
     try:
         fp32 = _logits_by_variant(model, tokens, ssm, "ssd", variants)
     finally:
         model.cfg = cfg
-    fp32_launches = {c: getattr(fa_ops, c) for c in K2_COUNTERS}
-    # four fp32 forwards over 7 sites each, all on the scalar route
+    fp32_launches = {c: getattr(fa_ops, c) for c in COUNTERS}
+    fp32_k3 = {c: getattr(ssd_ops, c) for c in COUNTERS}
+    # four fp32 forwards over 7 sites each, all on K2's scalar route; K3's
+    # scalar route in each of the 38 layers of the one forward with K3
     want = {"launches": 4 * sites, "launches_sm90": 0, "launches_scalar": 4 * sites}
-    if fp32_launches != want:
-        raise AssertionError(f"K2 launches {fp32_launches} in the fp32 forwards, want {want}")
+    want_k3 = {"launches": cfg.n_layers, "launches_sm90": 0, "launches_scalar": cfg.n_layers}
+    if fp32_launches != want or fp32_k3 != want_k3:
+        raise AssertionError(f"launches in the fp32 forwards: K2 {fp32_launches}, want "
+                             f"{want}; K3 {fp32_k3}, want {want_k3}")
     floor = (fp32["plain_q64"] - fp32["plain"]).abs().max().item()
     # the floor is about 5e-4 of the largest logit (NVIDIA H100 80GB HBM3,
     # 700 W), so 1e-2 leaves a margin of 20; K3 must also stay within a few
@@ -753,12 +823,16 @@ def phase_hybrid():
         raise AssertionError(f"zamba2-1.2b: logits with K3 differ from those with the "
                              f"plain SSD by more than 4 times the rounding floor {floor}: "
                              f"{gaps}")
-    emit(phase="hybrid", k3_launches=launches["k3"], k2_sm90_launches=launches["launches_sm90"],
-         k2_launches_fp32_forwards=fp32_launches,
+    emit(phase="hybrid", k3_launches=launches["k3"], k3_sm90_launches=launches["k3_sm90"],
+         k2_sm90_launches=launches["launches_sm90"], k2_launches_fp32_forwards=fp32_launches,
+         k3_launches_fp32_forwards=fp32_k3,
          layer_max_abs_err=max(e for e, _ in layer_excess),
          layer_max_excess=max(x for _, x in layer_excess),
+         no_carry_layer_max_excess=max(x for _, x in wrong_excess),
+         no_carry_layers_failing=sum(x > 0 for _, x in wrong_excess),
          fp32_logits_plain_q64_vs_plain_max_abs=floor, **gaps, **run)
-    return {"k3": launches["k3"], "k2_sm90": launches["launches_sm90"],
+    return {"k3_sm90": launches["k3_sm90"], "k3_scalar": fp32_k3["launches_scalar"],
+            "k2_sm90": launches["launches_sm90"],
             "k2_scalar": fp32_launches["launches_scalar"]}
 
 
@@ -804,9 +878,13 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
          "launches": hybrid["k2_scalar"], **k2["scalar"]},
+        {"name": "ssd_scan_sm90", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan_sm90.cu",
+         "replaces": "src/repro/kernels/ssd/ssd.py:78",
+         "launches": hybrid["k3_sm90"], **k3["sm90"]},
         {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd/ssd.py:78",
-         "launches": hybrid["k3"], **k3},
+         "launches": hybrid["k3_scalar"], **k3["scalar"]},
     ]
     idle = [kern["name"] for kern in kernels if not kern["launches"]]
     if idle:

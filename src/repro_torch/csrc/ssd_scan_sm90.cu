@@ -1,0 +1,534 @@
+// ssd_scan_sm90: the Mamba2 SSD chunked scan on Hopper's tensor cores, for
+// bf16 x, B and C with N = P = 64.
+//
+// Replaces the Pallas TPU kernel `ssd_scan` (src/repro/kernels/ssd/ssd.py:78,
+// kernel `_ssd_kernel`) on the bf16 prefill path; csrc/ssd_scan.cu keeps fp32
+// and every other N and P.  It computes the same function: per (batch, head)
+// and chunk of Q steps, L = cumsum(a * dt);
+// y = M . x + exp(L_i) * (C_i . h_in), M_ij = (C_i . B_j) * exp(L_i - L_j) *
+// dt_j for i >= j and 0 above the diagonal; h_out = exp(L_last) * h_in +
+// sum_j exp(L_last - L_j) * dt_j * B_j (x) x_j.  y is written in bf16, the
+// final state in fp32.  The mask selects before the exp, so exp(L_i - L_j)
+// is never used above the diagonal, where it overflows for long chunks.
+//
+// Bound on this card, at zamba2-1.2b's prefill shape (B 4, S 1024, H 64,
+// P = N = 64, Q 128): about 73 MB of input and output (x and y in bf16, B and
+// C in bf16, dt and the state in fp32) take 0.022 ms at 3.35 TB/s, longer
+// than the 8.6 GFLOP of the function take on the tensor cores, so bytes
+// bound it.  The TPU kernel walks the chunks of one (batch, head) in order
+// and carries the [N, P] state in VMEM; on Hopper that leaves 256 blocks
+// each walking 8 chunks serially.  Here the scan is split into three
+// kernels, each parallel over (batch, chunk, head tile):
+//  1. ssd_sm90_chunk_state: each chunk's own state contribution
+//     s_c = (w o B)^T . x, w_j = exp(L_last - L_j) * dt_j, into an fp32
+//     scratch [B, nc, H, N, P], and exp(L_last) into [B, nc, H];
+//  2. ssd_sm90_state_pass: h_in[c] = exp(L_last[c-1]) * h_in[c-1] + s_{c-1},
+//     elementwise over (b, h, n, p), written over s in the scratch, and the
+//     final state;
+//  3. ssd_sm90_chunk_scan: G = C . B^T once per (batch, chunk) for the heads
+//     of the block (B and C are shared by the heads), kept in shared memory
+//     for the 36 16 x 16 tiles on and below the diagonal only; then per head
+//     y = exp(L_i) * (C . h_in) + M . x.
+// Every product is mma.sync.m16n8k16 (bf16 in, fp32 accumulate), operands
+// by ldmatrix (.trans where the contraction dim is not the contiguous one)
+// from tiles whose 16-byte chunks are XOR-swizzled by row, so a warp's
+// ldmatrix hits every bank once.  Tiles arrive by cp.async (16 bytes a
+// thread, rows past the sequence zero-filled), the next head's x tile while
+// this head computes.  C . B^T has bf16 operands and is exact up to fp32
+// summation order.  The other three products each have one fp32 operand
+// (M, w o B and h_in); each goes in as two bf16 terms, hi = bf16(v) and
+// lo = bf16(v - hi), which together are v within 2^-16 of itself, so the
+// products keep fp32 accuracy at twice the tensor-core work.  The plain
+// version of this route, ssd_scan_torch(..., split=True), forms the same
+// terms with the same grouping.  A ragged last chunk, or Q that is not a
+// multiple of 16, is padded by bounds: rows past the chunk load as dt = 0,
+// x = B = C = 0, which leaves L, y and the state unchanged.
+// This design moves about 235 MB (x twice, the scratch through memory four
+// times), three times the function's 73 MB; a single pass that hands h from
+// chunk to chunk in order is the way to the bound.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kD = 64;          // N = P
+constexpr int kDD = kD * kD;    // elements of one [N, P] state
+constexpr int kMaxQ = 128;      // steps of a chunk, at most
+constexpr int kHT = 8;          // heads per block
+constexpr int kThreads = 256;   // 8 warps
+constexpr int kTileBytes = kMaxQ * kD * 2;     // 128 rows of 64 bf16: 16 KB
+constexpr int kHTileBytes = kD * kD * 2;       // 64 rows of 64 bf16: 8 KB
+constexpr int kGTiles = 36;     // 16 x 16 tiles on and below the diagonal of 128 x 128
+static_assert(kHT <= kThreads / 32, "one warp forms each head's cumsum");
+
+struct Args {
+  const __nv_bfloat16* x;   // [B, S, H, P], unit stride on P
+  const float* dt;          // [B, S, H]
+  const __nv_bfloat16* Bm;  // [B, S, N], unit stride on N
+  const __nv_bfloat16* Cm;  // [B, S, N], unit stride on N
+  const float* a;           // [H]
+  __nv_bfloat16* y;         // contiguous [B, S, H, P]
+  float* state;             // contiguous [B, H, N, P]
+  float* scratch;           // contiguous [B, nc, H, N, P]
+  float* decay;             // contiguous [B, nc, H]
+  int S, H, Q, Qt, nc;      // Qt: Q rounded up to 16
+  long long xsb, xss, xsh;  // element strides of x's B, S and H dims
+  long long dsb, dss, dsh;  // of dt
+  long long bsb, bss;       // of Bm's B and S dims
+  long long csb, css;       // of Cm
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk k (columns 8k .. 8k + 7) of row r in a tile of
+// 64 bf16 columns: the chunks of a row are permuted by r % 8.
+__device__ __forceinline__ uint32_t swz(int r, int k) {
+  return (uint32_t)(r * 128 + ((k ^ (r & 7)) << 4));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (v0, v1) as two bf16 pairs, hi = bf16(v) and lo = bf16(v - hi); v - hi is
+// exact in fp32, so hi + lo is v within 2^-16 |v|.  v0 in the low halves.
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 back = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - back.x, v1 - back.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ float2 unpack(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// Rows 0 .. Qt-1 of a [*, 64] bf16 source into a swizzled tile, rows >= rows
+// as zeros; one cp.async group is left open for the caller to commit.
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src,
+                                          long long stride, int rows, int Qt) {
+  for (int i = threadIdx.x; i < Qt * 8; i += kThreads) {
+    const int r = i >> 3, k = i & 7;
+    const bool ok = r < rows;
+    cp_async16(dst + swz(r, k), ok ? src + r * stride + k * 8 : src, ok);
+  }
+}
+
+// dt of the block's heads: sdt[k * kMaxQ + r], 0 past the chunk and past H
+__device__ __forceinline__ void load_dt(float* sdt, const Args& g, int b, int s0, int rows,
+                                        int h0) {
+  const float* dt = g.dt + b * g.dsb + s0 * g.dss;
+  for (int i = threadIdx.x; i < kHT * g.Qt; i += kThreads) {
+    const int k = i / g.Qt, r = i % g.Qt;
+    const int h = h0 + k;
+    sdt[k * kMaxQ + r] = (r < rows && h < g.H) ? dt[r * g.dss + h * g.dsh] : 0.f;
+  }
+}
+
+// L[r] = sum_{r' <= r} a * dt[r'] over Qt steps, by one warp: four steps a
+// lane in order, then a scan of the lanes' sums.
+__device__ __forceinline__ void cumsum_warp(const float* sdt, float* sL, float a, int Qt,
+                                            int lane) {
+  float v[4], run = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = lane * 4 + k;
+    run += r < Qt ? a * sdt[r] : 0.f;
+    v[k] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    const float u = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += u;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = lane * 4 + k;
+    if (r < Qt) sL[r] = excl + v[k];
+  }
+}
+
+// ---- 1. each chunk's state contribution --------------------------------------
+// Grid (nc, head tiles, B).  Warp w computes rows n of n-tile w % 4 and the 32
+// columns p of half w / 4 of s = (w o B)^T . x for each head of the block.
+__global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_state(const Args g) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t sB = smem_u32(smem);
+  const uint32_t sX = sB + kTileBytes;                           // two buffers
+  float* sDt = reinterpret_cast<float*>(smem + 3 * kTileBytes);  // [kHT][kMaxQ]
+  float* sW = sDt + kHT * kMaxQ;                                 // [kHT][kMaxQ]
+
+  const int c = blockIdx.x, h0 = blockIdx.y * kHT, b = blockIdx.z;
+  const int nh = min(kHT, g.H - h0), Qt = g.Qt;
+  const int s0 = c * g.Q, rows = min(g.Q, g.S - s0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t4 = lane & 3, mat = lane >> 3;
+  const __nv_bfloat16* xs = g.x + b * g.xsb + s0 * g.xss;
+
+  load_tile(sB, g.Bm + b * g.bsb + s0 * g.bss, g.bss, rows, Qt);
+  load_tile(sX, xs + h0 * g.xsh, g.xss, rows, Qt);
+  cp_async_commit();
+  load_dt(sDt, g, b, s0, rows, h0);
+  __syncthreads();
+
+  // w_j = exp(L_last - L_j) * dt_j per head, and exp(L_last)
+  if (warp < nh) {
+    float* sL = sW + warp * kMaxQ;
+    const float* dtk = sDt + warp * kMaxQ;
+    cumsum_warp(dtk, sL, g.a[h0 + warp], Qt, lane);
+    __syncwarp();
+    const float last = sL[Qt - 1];
+    __syncwarp();
+    for (int r = lane; r < Qt; r += 32) sL[r] = expf(last - sL[r]) * dtk[r];
+    if (lane == 0) g.decay[((long long)b * g.nc + c) * g.H + h0 + warp] = expf(last);
+  }
+
+  const int ntile = warp & 3, phalf = warp >> 2;
+  for (int k = 0; k < nh; ++k) {
+    if (k + 1 < nh) {
+      load_tile(sX + ((k + 1) & 1) * kTileBytes, xs + (h0 + k + 1) * g.xsh, g.xss, rows, Qt);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // x of head k, and the w of every head
+    const uint32_t sXk = sX + (k & 1) * kTileBytes;
+    const float* w = sW + k * kMaxQ;
+    float acc[4][4] = {};
+    for (int kt = 0; kt < Qt / 16; ++kt) {
+      // A = (w o B)^T: rows n, columns j; B is stored [j][n], hence .trans
+      uint32_t braw[4], ahi[4], alo[4];
+      ldsm_x4_t(braw, sB + swz(16 * kt + (lane & 7) + ((mat >> 1) << 3), 2 * ntile + (mat & 1)));
+      const int j0 = 16 * kt + 2 * t4;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = j0 + (q >> 1) * 8;
+        const float2 bv = unpack(braw[q]);
+        split2(bv.x * w[j], bv.y * w[j + 1], ahi[q], alo[q]);
+      }
+#pragma unroll
+      for (int pp = 0; pp < 2; ++pp) {
+        uint32_t xb[4];
+        ldsm_x4_t(xb, sXk + swz(16 * kt + (lane & 7) + ((mat & 1) << 3),
+                                4 * phalf + 2 * pp + (mat >> 1)));
+        mma(acc[2 * pp], ahi, xb[0], xb[1]);
+        mma(acc[2 * pp], alo, xb[0], xb[1]);
+        mma(acc[2 * pp + 1], ahi, xb[2], xb[3]);
+        mma(acc[2 * pp + 1], alo, xb[2], xb[3]);
+      }
+    }
+    float* out = g.scratch + (((long long)b * g.nc + c) * g.H + h0 + k) * kDD;
+    const int n = 16 * ntile + gq;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int p = 32 * phalf + 8 * nt + 2 * t4;
+      *reinterpret_cast<float2*>(out + n * kD + p) = make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(out + (n + 8) * kD + p) = make_float2(acc[nt][2], acc[nt][3]);
+    }
+    __syncthreads();  // x buffer k & 1 is free for head k + 2
+  }
+}
+
+// ---- 2. the pass across chunks ------------------------------------------------
+// One thread per 4 elements of one (b, h) state.  The loads of up to 8 chunks
+// are issued before their stores, so they are in flight together.
+__global__ void __launch_bounds__(kThreads) ssd_sm90_state_pass(const Args g, int n_threads) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_threads) return;
+  const int e = (i % (kDD / 4)) * 4, bh = i / (kDD / 4);
+  const int b = bh / g.H, h = bh % g.H;
+  float* slot0 = g.scratch + ((long long)b * g.nc * g.H + h) * kDD + e;
+  const float* dec0 = g.decay + (long long)b * g.nc * g.H + h;
+  const long long step = (long long)g.H * kDD;  // from one chunk's slot to the next
+  float4 hc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < g.nc; c0 += 8) {
+    float4 s[8];
+    float dec[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (c0 + k < g.nc) {
+        s[k] = *reinterpret_cast<const float4*>(slot0 + (c0 + k) * step);
+        dec[k] = dec0[(long long)(c0 + k) * g.H];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (c0 + k < g.nc) {
+        *reinterpret_cast<float4*>(slot0 + (c0 + k) * step) = hc;  // h_in of chunk c0 + k
+        const float d = dec[k];
+        hc = make_float4(d * hc.x + s[k].x, d * hc.y + s[k].y, d * hc.z + s[k].z,
+                         d * hc.w + s[k].w);
+      }
+    }
+  }
+  *reinterpret_cast<float4*>(g.state + (long long)bh * kDD + e) = hc;
+}
+
+// ---- 3. y ---------------------------------------------------------------------
+// Grid (nc, head tiles, B).  Warp w owns the 16 rows of row tile w and all 64
+// columns p of y.
+__global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t sC = smem_u32(smem);
+  const uint32_t sB = sC + kTileBytes;          // after G: h_in's two terms
+  const uint32_t sHhi = sB, sHlo = sB + kHTileBytes;
+  const uint32_t sX = sB + kTileBytes;          // two buffers
+  float* sG = reinterpret_cast<float*>(smem + 4 * kTileBytes);   // [kGTiles][2][32][4]
+  float* sDt = sG + kGTiles * 256;                               // [kHT][kMaxQ]
+  float* sL = sDt + kHT * kMaxQ;                                 // [kHT][kMaxQ]
+
+  const int c = blockIdx.x, h0 = blockIdx.y * kHT, b = blockIdx.z;
+  const int nh = min(kHT, g.H - h0), Qt = g.Qt, nt = Qt / 16;
+  const int s0 = c * g.Q, rows = min(g.Q, g.S - s0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t4 = lane & 3, mat = lane >> 3;
+  const __nv_bfloat16* xs = g.x + b * g.xsb + s0 * g.xss;
+  const float* hin = g.scratch + ((long long)b * g.nc + c) * g.H * kDD;
+
+  load_tile(sC, g.Cm + b * g.csb + s0 * g.css, g.css, rows, Qt);
+  load_tile(sB, g.Bm + b * g.bsb + s0 * g.bss, g.bss, rows, Qt);
+  cp_async_commit();
+  load_tile(sX, xs + h0 * g.xsh, g.xss, rows, Qt);
+  cp_async_commit();
+  // h_in of the first head into registers: this thread's 16 of its 4096.
+  // The first chunk starts from h = 0 and skips C . h_in.
+  const bool carry = c > 0;
+  float4 hreg[4] = {};
+  if (carry) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      hreg[q] = reinterpret_cast<const float4*>(hin + h0 * kDD)[threadIdx.x + kThreads * q];
+  }
+  load_dt(sDt, g, b, s0, rows, h0);
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // G = C . B^T on the tiles (ti, tj), tj <= ti; tile t = ti (ti + 1) / 2 + tj
+  // is stored in the accumulator layout, sG[t][n8][lane][reg]
+  for (int t = warp; t < nt * (nt + 1) / 2; t += 8) {
+    int ti = 0;
+    while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
+    const int tj = t - ti * (ti + 1) / 2;
+    float acc[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      uint32_t ca[4], bb[4];
+      ldsm_x4(ca, sC + swz(16 * ti + (lane & 7) + ((mat & 1) << 3), 2 * kk + (mat >> 1)));
+      ldsm_x4(bb, sB + swz(16 * tj + (lane & 7) + ((mat >> 1) << 3), 2 * kk + (mat & 1)));
+      mma(acc[0], ca, bb[0], bb[1]);
+      mma(acc[1], ca, bb[2], bb[3]);
+    }
+#pragma unroll
+    for (int n8 = 0; n8 < 2; ++n8)
+      reinterpret_cast<float4*>(sG)[(t * 2 + n8) * 32 + lane] =
+          make_float4(acc[n8][0], acc[n8][1], acc[n8][2], acc[n8][3]);
+  }
+  if (warp < nh) cumsum_warp(sDt + warp * kMaxQ, sL + warp * kMaxQ, g.a[h0 + warp], Qt, lane);
+  __syncthreads();  // G and L are ready; B's tile is free for h_in
+
+  // Row tile ti has ti + 1 column tiles of M . x.  Warps w and w + 4 share
+  // an SM sub-partition, so they take tiles a and 7 - a: 9 tiles a pair.
+  const int ti = warp < 4 ? warp : 11 - warp;
+  const int i0 = 16 * ti + gq, i1 = i0 + 8;
+  for (int k = 0; k < nh; ++k) {
+    // h_in of head k as two bf16 terms, [n][p] in swizzled tiles
+#pragma unroll
+    for (int q = 0; q < 4 && carry; ++q) {
+      const int f = threadIdx.x + kThreads * q;  // float4 index: n = f / 16, p = 4 (f % 16)
+      const uint32_t off = swz(f >> 4, (f & 15) >> 1) + (f & 1) * 8;
+      uint2 hi, lo;
+      split2(hreg[q].x, hreg[q].y, hi.x, lo.x);
+      split2(hreg[q].z, hreg[q].w, hi.y, lo.y);
+      asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" :: "r"(sHhi + off), "r"(hi.x), "r"(hi.y)
+                   : "memory");
+      asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" :: "r"(sHlo + off), "r"(lo.x), "r"(lo.y)
+                   : "memory");
+    }
+    if (k + 1 < nh) {
+#pragma unroll
+      for (int q = 0; q < 4 && carry; ++q)
+        hreg[q] = reinterpret_cast<const float4*>(hin + (h0 + k + 1) * kDD)[threadIdx.x + kThreads * q];
+      load_tile(sX + ((k + 1) & 1) * kTileBytes, xs + (h0 + k + 1) * g.xsh, g.xss, rows, Qt);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // h_in's terms and x of head k are in place
+    const uint32_t sXk = sX + (k & 1) * kTileBytes;
+    const float* L = sL + k * kMaxQ;
+    const float* dtk = sDt + k * kMaxQ;
+
+    if (ti < nt) {
+      float acc[8][4] = {};
+      // exp(L_i) * (C_i . h_in), h_in as hi + lo
+#pragma unroll
+      for (int kk = 0; kk < kD / 16 && carry; ++kk) {
+        uint32_t ca[4];
+        ldsm_x4(ca, sC + swz(16 * ti + (lane & 7) + ((mat & 1) << 3), 2 * kk + (mat >> 1)));
+        const int hr = 16 * kk + (lane & 7) + ((mat & 1) << 3);
+#pragma unroll
+        for (int pp = 0; pp < 4; ++pp) {
+          uint32_t bh[4], bl[4];
+          ldsm_x4_t(bh, sHhi + swz(hr, 2 * pp + (mat >> 1)));
+          ldsm_x4_t(bl, sHlo + swz(hr, 2 * pp + (mat >> 1)));
+          mma(acc[2 * pp], ca, bh[0], bh[1]);
+          mma(acc[2 * pp], ca, bl[0], bl[1]);
+          mma(acc[2 * pp + 1], ca, bh[2], bh[3]);
+          mma(acc[2 * pp + 1], ca, bl[2], bl[3]);
+        }
+      }
+      const float Li0 = L[i0], Li1 = L[i1];
+      const float e0 = expf(Li0), e1 = expf(Li1);
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8) {
+        acc[n8][0] *= e0;
+        acc[n8][1] *= e0;
+        acc[n8][2] *= e1;
+        acc[n8][3] *= e1;
+      }
+      // + M . x over the column tiles tj <= ti
+      for (int tj = 0; tj <= ti; ++tj) {
+        const int t = ti * (ti + 1) / 2 + tj;
+        const float4 g0 = reinterpret_cast<const float4*>(sG)[(t * 2) * 32 + lane];
+        const float4 g1 = reinterpret_cast<const float4*>(sG)[(t * 2 + 1) * 32 + lane];
+        const int j0 = 16 * tj + 2 * t4;
+        // M at (row, column): select on i >= j before the exp.  __expf is
+        // ex2.approx of (L_i - L_j) log2(e): within about 2^-21 + |L_i - L_j|
+        // 2^-24 of exp, relative, far inside the tolerance.
+        const float2 Lj = *reinterpret_cast<const float2*>(L + j0);
+        const float2 Lj8 = *reinterpret_cast<const float2*>(L + j0 + 8);
+        const float2 dj = *reinterpret_cast<const float2*>(dtk + j0);
+        const float2 dj8 = *reinterpret_cast<const float2*>(dtk + j0 + 8);
+        auto m = [](float gv, int i, float li, int j, float lj, float dtj) {
+          return i >= j ? gv * __expf(li - lj) * dtj : 0.f;
+        };
+        uint32_t ahi[4], alo[4];
+        split2(m(g0.x, i0, Li0, j0, Lj.x, dj.x), m(g0.y, i0, Li0, j0 + 1, Lj.y, dj.y),
+               ahi[0], alo[0]);
+        split2(m(g0.z, i1, Li1, j0, Lj.x, dj.x), m(g0.w, i1, Li1, j0 + 1, Lj.y, dj.y),
+               ahi[1], alo[1]);
+        split2(m(g1.x, i0, Li0, j0 + 8, Lj8.x, dj8.x), m(g1.y, i0, Li0, j0 + 9, Lj8.y, dj8.y),
+               ahi[2], alo[2]);
+        split2(m(g1.z, i1, Li1, j0 + 8, Lj8.x, dj8.x), m(g1.w, i1, Li1, j0 + 9, Lj8.y, dj8.y),
+               ahi[3], alo[3]);
+        const int xr = 16 * tj + (lane & 7) + ((mat & 1) << 3);
+#pragma unroll
+        for (int pp = 0; pp < 4; ++pp) {
+          uint32_t xb[4];
+          ldsm_x4_t(xb, sXk + swz(xr, 2 * pp + (mat >> 1)));
+          mma(acc[2 * pp], ahi, xb[0], xb[1]);
+          mma(acc[2 * pp], alo, xb[0], xb[1]);
+          mma(acc[2 * pp + 1], ahi, xb[2], xb[3]);
+          mma(acc[2 * pp + 1], alo, xb[2], xb[3]);
+        }
+      }
+      // y rows < rows, as bf16 pairs
+      __nv_bfloat16* yh = g.y + ((long long)b * g.S + s0) * g.H * kD + (long long)(h0 + k) * kD;
+      const long long ys = (long long)g.H * kD;
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8) {
+        const int p = 8 * n8 + 2 * t4;
+        if (i0 < rows)
+          *reinterpret_cast<__nv_bfloat162*>(yh + i0 * ys + p) =
+              __floats2bfloat162_rn(acc[n8][0], acc[n8][1]);
+        if (i1 < rows)
+          *reinterpret_cast<__nv_bfloat162*>(yh + i1 * ys + p) =
+              __floats2bfloat162_rn(acc[n8][2], acc[n8][3]);
+      }
+    }
+    __syncthreads();  // h_in's terms and x buffer k & 1 are free
+  }
+}
+
+constexpr int kSmemState = 3 * kTileBytes + 2 * kHT * kMaxQ * 4;
+constexpr int kSmemScan = 4 * kTileBytes + kGTiles * 256 * 4 + 2 * kHT * kMaxQ * 4;
+
+}  // namespace
+
+extern "C" {
+
+// x [B,S,H,64], dt [B,S,H] fp32, Bm and Cm [B,S,64] bf16, with unit stride on
+// the last dim and the given element strides on the others (of x, Bm and Cm
+// multiples of 8, their bases 16-byte aligned), a [H] fp32; y contiguous
+// [B,S,H,64] bf16, state contiguous [B,H,64,64] fp32; scratch [B,nc,H,64,64]
+// and decay [B,nc,H] fp32, nc = ceil(S / Q); chunks of Q <= 128 steps.
+// Launches three kernels on `stream` and returns cudaGetLastError() without
+// synchronising.
+int ssd_scan_sm90_launch(const void* x, const void* dt, const void* Bm, const void* Cm,
+                         const void* a, void* y, void* state, void* scratch, void* decay,
+                         int B, int S, int H, int Q, long long xsb, long long xss,
+                         long long xsh, long long dsb, long long dss, long long dsh,
+                         long long bsb, long long bss, long long csb, long long css,
+                         void* stream) {
+  auto bad_stride = [](long long stride, int size) { return size > 1 && stride % 8 != 0; };
+  if (B <= 0 || S <= 0 || H <= 0 || Q <= 0 || Q > kMaxQ || Q > S || B > 65535 ||
+      (H + kHT - 1) / kHT > 65535 || ((uintptr_t)x | (uintptr_t)Bm | (uintptr_t)Cm) % 16 ||
+      bad_stride(xsb, B) || bad_stride(xss, S) || bad_stride(xsh, H) ||
+      bad_stride(bsb, B) || bad_stride(bss, S) || bad_stride(csb, B) || bad_stride(css, S))
+    return (int)cudaErrorInvalidValue;
+  const int nc = (S + Q - 1) / Q;
+  const Args g{static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
+               static_cast<const __nv_bfloat16*>(Bm), static_cast<const __nv_bfloat16*>(Cm),
+               static_cast<const float*>(a), static_cast<__nv_bfloat16*>(y),
+               static_cast<float*>(state), static_cast<float*>(scratch),
+               static_cast<float*>(decay), S, H, Q, (Q + 15) / 16 * 16, nc,
+               xsb, xss, xsh, dsb, dss, dsh, bsb, bss, csb, css};
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaFuncSetAttribute(ssd_sm90_chunk_state,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemState);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ssd_sm90_chunk_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemScan);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(nc, (H + kHT - 1) / kHT, B);
+  ssd_sm90_chunk_state<<<grid, kThreads, kSmemState, s>>>(g);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int n_threads = B * H * (kDD / 4);
+  ssd_sm90_state_pass<<<(n_threads + kThreads - 1) / kThreads, kThreads, 0, s>>>(g, n_threads);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ssd_sm90_chunk_scan<<<grid, kThreads, kSmemScan, s>>>(g);
+  return (int)cudaGetLastError();
+}
+
+const char* ssd_scan_sm90_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

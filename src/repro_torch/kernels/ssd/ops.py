@@ -1,11 +1,26 @@
-"""Wrapper of the SSD scan kernel (``csrc/ssd_scan.cu``).
+"""Wrappers of the two SSD scan kernels.
 
 ``ssd`` keeps the model's [B,S,H,P] layout at its interface, with B and C
-shared across heads as [B,S,N].  On CUDA tensors it launches the kernel,
-which reads x, dt, B and C through their strides (no transpose and no
-per-head copies of B and C); on CPU tensors it runs the kernel's plain
-version, ``ref.ssd_scan_torch``.  This is the one place the model's SSD
-picks its device.  ``launches`` counts the kernel's launches.
+shared across heads as [B,S,N].  On CUDA tensors it launches one of two
+hand-written kernels, which ``route`` picks from dtype and shape alone,
+before any launch:
+
+- ``"sm90"`` (``csrc/ssd_scan_sm90.cu``): bf16 x, B and C with N = P = 64,
+  every Mamba2 prefill layer of zamba2-1.2b.  mma.sync bf16 tensor cores,
+  split into three kernels over (batch, chunk, head tile); x, B and C must
+  meet its 16-byte copies (``copy_check``), or the wrapper raises
+  ``ValueError``.
+- ``"scalar"`` (``csrc/ssd_scan.cu``): every other input (fp32, other N or
+  P), on the CUDA cores.
+
+Both read x, dt, B and C through their strides (no transpose and no
+per-head copies of B and C).  No route falls back to another, and nothing
+falls back to the plain version: a refused input or a failed launch raises.
+On CPU tensors ``ssd`` runs the plain version of the route the inputs would
+take on the card (``ssd_plain``).  This is the one place the model's SSD
+picks its device.  ``launches`` counts the calls that launched either
+route, ``launches_sm90`` and ``launches_scalar`` each route's; one sm90
+call launches three CUDA kernels and counts as one.
 """
 from __future__ import annotations
 
@@ -15,16 +30,22 @@ from .. import _cuda
 from .ref import ssd_scan_torch
 
 launches = 0
+launches_sm90 = 0
+launches_scalar = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232_448    # bytes of shared memory a block may opt into on sm_90
-MAX_CHUNK = 128         # the kernel's tiles hold at most 128 steps
+MAX_CHUNK = 128         # the kernels' tiles hold at most 128 steps
+SM90_DIMS = (64,)       # N = P of the sm90 route
+# each route's plain version: the arguments of ssd_scan_torch
+PLAIN_ARGS = {"sm90": {"split": True}, "scalar": {}}
 
 
 def smem_bytes(Q: int, N: int, P: int) -> int:
-    """Dynamic shared memory of one block, as ``ssd_scan.cu`` lays it out:
-    the [N,P] state, the x tile, the B and C tiles (rows padded by one), the
-    [Q,Q] mixing tile and four per-step vectors, all fp32."""
+    """Dynamic shared memory of one block of the scalar kernel, as
+    ``ssd_scan.cu`` lays it out: the [N,P] state, the x tile, the B and C
+    tiles (rows padded by one), the [Q,Q] mixing tile and four per-step
+    vectors, all fp32."""
     return 4 * (N * P + Q * P + 2 * Q * (N + 1) + Q * Q + 4 * Q)
 
 
@@ -46,27 +67,108 @@ def _check(x, dt, Bm, Cm, a) -> None:
         raise ValueError("ssd: all inputs must be on one device")
 
 
-def ssd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
-        a: torch.Tensor, chunk: int = 128, decay_dtype: torch.dtype = torch.float32):
-    """x [B,S,H,P], dt [B,S,H], Bm/Cm [B,S,N] (shared across heads), a [H]
-    → (y [B,S,H,P] in x's dtype, state [B,H,N,P] fp32), in chunks of
-    min(chunk, S) steps.  ``decay_dtype`` is the plain version's (see
-    ``ssd_scan_torch``); the kernel computes its decay in fp32 only."""
-    global launches
-    _check(x, dt, Bm, Cm, a)
-    if x.device.type == "cpu":
-        return ssd_scan_torch(x, dt, Bm, Cm, a, chunk, decay_dtype=decay_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd: no kernel for device {x.device}")
-    if decay_dtype != torch.float32:
-        raise NotImplementedError(
-            f"ssd: decay_dtype {decay_dtype}: the SSD kernel computes its decay in "
-            "float32 only (ROADMAP.md, §2, K3)")
-    B, S, H, P = x.shape
-    N = Bm.shape[-1]
+def route(x, Bm) -> str:
+    """The kernel that ``ssd`` launches for x [B,S,H,P] and Bm [B,S,N] on
+    CUDA, from dtype and shape alone: ``"sm90"`` for bf16 with N = P = 64,
+    ``"scalar"`` for everything else."""
+    if x.dtype == torch.bfloat16 and Bm.dtype == torch.bfloat16 \
+            and x.shape[-1] in SM90_DIMS and Bm.shape[-1] == x.shape[-1]:
+        return "sm90"
+    return "scalar"
+
+
+def ssd_plain(x, dt, Bm, Cm, a, chunk: int = 128,
+              decay_dtype: torch.dtype = torch.float32):
+    """The plain version of the route that the inputs take: the sm90 route
+    splits its fp32 operands into two bf16 terms, the scalar route keeps
+    them fp32."""
+    return ssd_scan_torch(x, dt, Bm, Cm, a, chunk, decay_dtype=decay_dtype,
+                          **PLAIN_ARGS[route(x, Bm)])
+
+
+def copy_check(x, Bm, Cm) -> None:
+    """Raise ``ValueError`` unless x, Bm and Cm meet the sm90 kernel's 16-byte
+    copies: base addresses 16-byte aligned, the last dim contiguous and every
+    other stride a multiple of 8 elements (16 bytes of bf16).  Reads pointers
+    and strides only, so it runs on any device."""
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"ssd sm90: {name}'s base address is not 16-byte aligned "
+                             f"(offset {t.data_ptr() % 16})")
+        if t.stride(-1) != 1:
+            raise ValueError(f"ssd sm90: the last dim of {name} must be contiguous")
+        for dim in range(t.dim() - 1):
+            if t.shape[dim] > 1 and t.stride(dim) * t.element_size() % 16:
+                raise ValueError(f"ssd sm90: {name}'s stride {t.stride(dim)} of dim {dim} "
+                                 f"is not a multiple of 16 bytes")
+
+
+def _chunk(chunk: int, S: int) -> int:
     Q = min(chunk, S)
     if Q < 1 or Q > MAX_CHUNK:
         raise ValueError(f"ssd: chunk {Q} is outside the kernel's [1, {MAX_CHUNK}]")
+    return Q
+
+
+def _decay_float32(decay_dtype) -> None:
+    if decay_dtype != torch.float32:
+        raise NotImplementedError(
+            f"ssd: decay_dtype {decay_dtype}: the SSD kernels compute their decay in "
+            "float32 only (ROADMAP.md, §2, 'K3: decay_dtype on the card')")
+
+
+def ssd_sm90(x, dt, Bm, Cm, a, chunk: int = 128,
+             decay_dtype: torch.dtype = torch.float32):
+    """Launch csrc/ssd_scan_sm90.cu on CUDA tensors that take the sm90 route
+    and meet ``copy_check``; raise ``ValueError`` otherwise.  Three kernels
+    on the current stream: each chunk's state contribution into a scratch
+    [B, nc, H, N, P] fp32, the pass across chunks that turns it into each
+    chunk's incoming state (and the final state), then y."""
+    global launches, launches_sm90
+    _check(x, dt, Bm, Cm, a)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd sm90: no kernel for device {x.device}")
+    if route(x, Bm) != "sm90":
+        raise ValueError(f"ssd sm90: takes bf16 with N = P in {SM90_DIMS}, not "
+                         f"{x.dtype} with P {x.shape[-1]}, N {Bm.shape[-1]}")
+    _decay_float32(decay_dtype)
+    copy_check(x, Bm, Cm)
+    if not a.is_contiguous():
+        raise ValueError("ssd sm90: a must be contiguous")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = _chunk(chunk, S)
+    nc = -(-S // Q)
+    y = torch.empty(B, S, H, P, dtype=x.dtype, device=x.device)
+    state = torch.empty(B, H, N, P, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(B, nc, H, N, P, dtype=torch.float32, device=x.device)
+    decay = torch.empty(B, nc, H, dtype=torch.float32, device=x.device)
+    lib = _cuda.library("ssd_scan_sm90")
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_sm90_launch(
+            x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), a.data_ptr(),
+            y.data_ptr(), state.data_ptr(), scratch.data_ptr(), decay.data_ptr(),
+            B, S, H, Q, x.stride(0), x.stride(1), x.stride(2),
+            dt.stride(0), dt.stride(1), dt.stride(2),
+            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+            torch.cuda.current_stream().cuda_stream)
+    _cuda.check(err, lib, "ssd_scan_sm90")
+    launches += 1
+    launches_sm90 += 1
+    return y, state
+
+
+def ssd_scalar(x, dt, Bm, Cm, a, chunk: int = 128,
+               decay_dtype: torch.dtype = torch.float32):
+    """Launch csrc/ssd_scan.cu on CUDA tensors of either dtype."""
+    global launches, launches_scalar
+    _check(x, dt, Bm, Cm, a)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd: no kernel for device {x.device}")
+    _decay_float32(decay_dtype)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = _chunk(chunk, S)
     if smem_bytes(Q, N, P) > SMEM_LIMIT:
         raise ValueError(f"ssd: chunk {Q}, N {N}, P {P} need {smem_bytes(Q, N, P)} "
                          f"bytes of shared memory, over the {SMEM_LIMIT} a block has")
@@ -85,4 +187,21 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
             int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     _cuda.check(err, lib, "ssd_scan")
     launches += 1
+    launches_scalar += 1
     return y, state
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+        a: torch.Tensor, chunk: int = 128, decay_dtype: torch.dtype = torch.float32):
+    """x [B,S,H,P], dt [B,S,H], Bm/Cm [B,S,N] (shared across heads), a [H]
+    → (y [B,S,H,P] in x's dtype, state [B,H,N,P] fp32), in chunks of
+    min(chunk, S) steps.  ``decay_dtype`` is the plain version's (see
+    ``ssd_scan_torch``); the kernels compute their decay in fp32 only."""
+    _check(x, dt, Bm, Cm, a)
+    if x.device.type == "cpu":
+        return ssd_plain(x, dt, Bm, Cm, a, chunk, decay_dtype=decay_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd: no kernel for device {x.device}")
+    if route(x, Bm) == "sm90":
+        return ssd_sm90(x, dt, Bm, Cm, a, chunk, decay_dtype)
+    return ssd_scalar(x, dt, Bm, Cm, a, chunk, decay_dtype)

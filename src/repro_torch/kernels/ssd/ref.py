@@ -1,4 +1,5 @@
-"""Plain torch versions of the SSD scan kernel (``csrc/ssd_scan.cu``).
+"""Plain torch versions of the SSD scan kernels (``csrc/ssd_scan.cu`` and,
+with ``split=True``, ``csrc/ssd_scan_sm90.cu``).
 
 Both take the model layout: x [B,S,H,P], dt [B,S,H] (> 0), B and C shared
 across heads as [B,S,N], a [H] (< 0); both return (y [B,S,H,P] in x's
@@ -20,8 +21,15 @@ import torch
 import torch.nn.functional as F
 
 
+def split_bf16(v):
+    """v as two bf16 terms in fp32, hi = bf16(v) and lo = bf16(v - hi): v -
+    hi is exact in fp32 and hi + lo is v within 2**-16 |v|."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
 def ssd_scan_torch(x, dt, Bm, Cm, a, chunk: int = 128,
-                   decay_dtype: torch.dtype = torch.float32):
+                   decay_dtype: torch.dtype = torch.float32, split: bool = False):
     """The kernel's chunked arithmetic in fp32, all chunks at once, then the
     short recurrence of the chunk states.  Per chunk of Q = min(chunk, S)
     steps: L = cumsum(a·dt); y = ((C·Bᵀ) ∘ exp(L_i − L_j) ∘ dt_j, i ≥ j)·x
@@ -29,7 +37,19 @@ def ssd_scan_torch(x, dt, Bm, Cm, a, chunk: int = 128,
     ·B_j⊗x_j.  A ragged last chunk is padded with dt = 0, which leaves the
     result unchanged.  ``decay_dtype`` (the JAX package's hill-climb lever
     on its CPU path; the kernel has none) sets the type of the decay tile
-    and of the intra-chunk product's operands, which accumulate in fp32."""
+    and of the intra-chunk product's operands, which accumulate in fp32.
+
+    ``split=True`` is the plain version of the sm90 kernel, which multiplies
+    on the bf16 tensor cores: each of its three products with an fp32
+    operand takes that operand as two bf16 terms (``split_bf16``), grouped
+    as the kernel groups them: the mixing tile M_ij = (C_i·B_j)·exp(L_i −
+    L_j)·dt_j (dt goes into M, not into x), the state weights
+    exp(L_last − L_j)·dt_j·B_j, and h_in, with exp(L_i) applied after C·h_in.
+    It computes the decay in fp32 only."""
+    if split and decay_dtype != torch.float32:
+        raise NotImplementedError(
+            f"ssd_scan_torch: split=True (the sm90 kernel's plain version) computes "
+            f"its decay in float32 only, not {decay_dtype}")
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -55,13 +75,21 @@ def ssd_scan_torch(x, dt, Bm, Cm, a, chunk: int = 128,
     diff = Ld[:, :, :, None, :] - Ld[:, :, None, :, :]    # [b,c,i,j,h]
     causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
     decay = torch.exp(diff.masked_fill(~causal[:, :, None], float("-inf")))
-    xdt = xc * dtc[..., None]
-    y = torch.einsum("bcij,bcijh,bcjhp->bcihp", G.to(decay_dtype).to(f32),
-                     decay.to(f32), xdt.to(decay_dtype).to(f32))
+    if split:
+        M = G[..., None] * decay * dtc[:, :, None]          # [b,c,i,j,h]
+        y = sum(torch.einsum("bcijh,bcjhp->bcihp", m, xc) for m in split_bf16(M))
+    else:
+        xdt = xc * dtc[..., None]
+        y = torch.einsum("bcij,bcijh,bcjhp->bcihp", G.to(decay_dtype).to(f32),
+                         decay.to(f32), xdt.to(decay_dtype).to(f32))
 
     # each chunk's own contribution to the state, then the chunk recurrence
     w = torch.exp(Llast[:, :, None, :] - L) * dtc          # [b,c,q,h]
-    cs = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Bc, w, xc)
+    if split:
+        wB = w[..., None] * Bc[:, :, :, None]             # [b,c,j,h,n]
+        cs = sum(torch.einsum("bcjhn,bcjhp->bchnp", t, xc) for t in split_bf16(wB))
+    else:
+        cs = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Bc, w, xc)
     dec = torch.exp(Llast)                                # [b,c,h]
     h = torch.zeros(Bsz, H, N, P, dtype=f32, device=x.device)
     h_in = []
@@ -71,7 +99,11 @@ def ssd_scan_torch(x, dt, Bm, Cm, a, chunk: int = 128,
     h_in = torch.stack(h_in, dim=1)                       # [b,c,h,n,p]
 
     # inter-chunk: y_i += exp(L_i)·C_i·h_in
-    y = y + torch.einsum("bcin,bchnp,bcih->bcihp", Cc, h_in, torch.exp(L))
+    if split:
+        Ch = sum(torch.einsum("bcin,bchnp->bcihp", Cc, t) for t in split_bf16(h_in))
+        y = y + torch.exp(L)[..., None] * Ch
+    else:
+        y = y + torch.einsum("bcin,bchnp,bcih->bcihp", Cc, h_in, torch.exp(L))
     return y.reshape(Bsz, nc * Q, H, P)[:, :S].to(x.dtype), h
 
 

@@ -13,10 +13,13 @@ both compute in fp32 and differ only in the summation order (and in the
 rounding of p's second term, within 2**-16 max|v|), so in bf16 an output
 differs by at most one rounding flip, |got - want| <= 2**-7 |want| + 1e-3
 (one bf16 ulp, with a floor for outputs near 0); in fp32 by at most 1e-4
-(summation order over up to 1024 keys).  K3 and its plain version
-compute in fp32 in another order (the chunk's cumsum of a·dt included), so
-the state and fp32 outputs differ by at most 1e-4·(1 + max|want|), and bf16
-outputs by one rounding flip more, 2**-7 |want|.
+(summation order over up to 1024 keys).  K3 has two routes, each held
+against its own plain version (the sm90 one splits each fp32 operand of its
+tensor-core products into two bf16 terms, as the kernel does).  Kernel and
+plain version compute in fp32 in another order (the chunk's cumsum of a·dt
+included), so the state and fp32 outputs differ by at most
+1e-4·(1 + max|want|), and bf16 outputs by one rounding flip more,
+2**-7 |want|.
 """
 import numpy as np
 import pytest
@@ -137,18 +140,29 @@ def test_flash_attention_sm90_refuses_misaligned_views(cuda):
     (4, 1024, 64, 64, 64, 128, torch.bfloat16, None),  # zamba2-1.2b's prefill
 ])
 def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype, a_fixed):
-    gen = torch.Generator(device=cuda).manual_seed(S + H)
+    """The scalar kernel, called by its own launcher (the bf16 cases at
+    N = P = 64 take the sm90 route through ssd)."""
+    x, dt, Bm, Cm, a = _ssd_inputs(cuda, B, S, H, P, N, dtype, a_fixed, S + H)
+    y, state = ssd_ops.ssd_scalar(x, dt, Bm, Cm, a, chunk=chunk)
+    want_y, want_state = ssd_scan_torch(x, dt, Bm, Cm, a, chunk=chunk)
+    _assert_ssd_close(y, state, want_y, want_state, (B, S, H, P), (B, H, N, P), dtype)
+
+
+def _ssd_inputs(cuda, B, S, H, P, N, dtype, a_fixed, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     # x is a strided view (every other head of a wider tensor), as the
-    # kernel reads it through its strides
+    # kernels read it through its strides
     x = (torch.randn(B, S, 2 * H, P, generator=gen, device=cuda) * 0.5).to(dtype)[:, :, ::2]
     dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen, device=cuda))
     Bm, Cm = ((torch.randn(B, S, N, generator=gen, device=cuda) * 0.5).to(dtype)
               for _ in range(2))
     a = (torch.full((H,), a_fixed, device=cuda) if a_fixed is not None else
          -torch.exp(torch.randn(H, generator=gen, device=cuda) * 0.3))
-    y, state = ssd_ops.ssd(x, dt, Bm, Cm, a, chunk=chunk)
-    want_y, want_state = ssd_scan_torch(x, dt, Bm, Cm, a, chunk=chunk)
-    assert y.dtype == dtype and y.shape == (B, S, H, P) and state.shape == (B, H, N, P)
+    return x, dt, Bm, Cm, a
+
+
+def _assert_ssd_close(y, state, want_y, want_state, y_shape, state_shape, dtype):
+    assert y.dtype == dtype and y.shape == y_shape and state.shape == state_shape
     floor = 1e-4 * (1 + want_y.float().abs().max().item())
     tol = floor + (2.0 ** -7 * want_y.float().abs() if dtype == torch.bfloat16 else 0)
     assert torch.isfinite(y).all() and ((y.float() - want_y.float()).abs() <= tol).all()
@@ -167,3 +181,44 @@ def test_ssd_kernel_rejects_what_it_does_not_cover(cuda):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ssd_ops.ssd(x[..., :64], dt, Bm[..., :64], Bm[..., :64], a, chunk=128,
                     decay_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,H,chunk,a_fixed", [
+    (2, 300, 4, 64, None),      # ragged at 64
+    (2, 128, 4, 128, None),     # one full chunk
+    (2, 1000, 8, 128, None),    # ragged at 128
+    (2, 300, 3, 128, None),     # H not a multiple of the kernel's head tile
+    (1, 40, 3, 128, None),      # one chunk of 40 steps
+    (2, 100, 5, 30, None),      # a chunk that is not a multiple of 16
+    (2, 256, 4, 128, -1.0),     # where exp(L_i - L_j) overflows above the diagonal
+    (4, 1024, 64, 128, None),   # zamba2-1.2b's prefill
+])
+def test_ssd_sm90_matches_plain(cuda, B, S, H, chunk, a_fixed):
+    x, dt, Bm, Cm, a = _ssd_inputs(cuda, B, S, H, 64, 64, torch.bfloat16, a_fixed, S + H + 1)
+    assert ssd_ops.route(x, Bm) == "sm90"
+    sm90, scalar = ssd_ops.launches_sm90, ssd_ops.launches_scalar
+    y, state = ssd_ops.ssd(x, dt, Bm, Cm, a, chunk=chunk)
+    assert (ssd_ops.launches_sm90, ssd_ops.launches_scalar) == (sm90 + 1, scalar)
+    want_y, want_state = ssd_ops.ssd_plain(x, dt, Bm, Cm, a, chunk=chunk)
+    _assert_ssd_close(y, state, want_y, want_state, (B, S, H, 64), (B, H, 64, 64),
+                      torch.bfloat16)
+
+
+def test_ssd_sm90_refuses_what_it_does_not_take(cuda):
+    x, dt, Bm, Cm, a = _ssd_inputs(cuda, 1, 256, 4, 64, 64, torch.bfloat16, None, 0)
+    before = ssd_ops.launches
+    with pytest.raises(ValueError, match="bf16"):
+        ssd_ops.ssd_sm90(x.float(), dt, Bm.float(), Cm.float(), a)
+    with pytest.raises(ValueError, match="bf16"):
+        ssd_ops.ssd_sm90(x[..., :32], dt, Bm[..., :32], Cm[..., :32], a)
+    flat = torch.zeros(x.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_ops.ssd(flat[1:].view(x.shape), dt, Bm, Cm, a)
+    wide = torch.zeros(1, 256, 65, device=cuda, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="stride"):
+        ssd_ops.ssd(x, dt, wide, Cm, a)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_ops.ssd(x, dt, Bm, Cm, a, chunk=256)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd_ops.ssd(x, dt, Bm, Cm, a, decay_dtype=torch.bfloat16)
+    assert ssd_ops.launches == before

@@ -83,6 +83,41 @@ def test_attention_decode_matches_reference(pos):
     _close(got, want, 2e-5)
 
 
+def test_decode_past_the_cache_clamps_in_the_reference_and_raises_in_the_port():
+    """At pos >= the cache length the reference's gqa_decode writes k and v
+    with dynamic_update_slice, which clamps the start: it overwrites the
+    last slot and returns finite outputs without an error.  The port's
+    raises ValueError instead.  One slot earlier both write the last slot
+    and agree."""
+    B, T, d, Hq, Hkv, D = 2, 4, 16, 4, 2, 8
+    w = {"wq": _np(1, d, Hq, D) * 0.25, "wk": _np(2, d, Hkv, D) * 0.25,
+         "wv": _np(3, d, Hkv, D) * 0.25, "wo": _np(4, Hq, D, d) * 0.2}
+    x, ck, cv = _np(5, B, 1, d), _np(6, B, T, Hkv, D), _np(7, B, T, Hkv, D)
+    jw = {k: jnp.asarray(v) for k, v in w.items()}
+    p = TL.GQA(torch.Generator().manual_seed(0), d, Hq, Hkv, D)
+    for k, v in w.items():
+        getattr(p, k).data = torch.from_numpy(v)
+    for pos in (T - 1, T, T + 3):
+        jcos, jsin = JL.rope_angles(jnp.asarray([pos]), D)
+        out, jk, jv = JL.gqa_decode(jw, jnp.asarray(x), jnp.asarray(ck), jnp.asarray(cv),
+                                    pos, jcos, jsin)
+        _, k_new, v_new = JL.gqa_qkv(jw, jnp.asarray(x))
+        k_new = JL.apply_rope(k_new, jcos, jsin)
+        assert np.isfinite(np.asarray(out)).all()
+        np.testing.assert_array_equal(np.asarray(jk)[:, :T - 1], ck[:, :T - 1])
+        np.testing.assert_allclose(np.asarray(jk)[:, T - 1], np.asarray(k_new)[:, 0])
+        np.testing.assert_allclose(np.asarray(jv)[:, T - 1], np.asarray(v_new)[:, 0])
+        cos, sin = TL.rope_angles(torch.tensor([pos]), D)
+        args = (torch.from_numpy(x), torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy()),
+                pos, cos, sin)
+        if pos < T:
+            got, _, _ = TL.gqa_decode(p, *args)
+            _close(got, out, 2e-5)
+        else:
+            with pytest.raises(ValueError, match="past the cache"):
+                TL.gqa_decode(p, *args)
+
+
 # ----------------------------------------------------------------- models ----
 def _pair(arch):
     jcfg = dataclasses.replace(jax_get_config(arch, smoke=True), dtype=jnp.float32)
