@@ -7,8 +7,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. build     compile the CUDA kernels from src/repro_torch/csrc (one nvcc
              per source, all at once);
-2. K1        event_join against its plain torch version, exact, and timed
-             beside torch.bincount (the yardstick, which the port never calls);
+2. K1        event_join against its plain torch version, exact, through the
+             tensor API and through the join backend (CudaJoin, whose
+             scratch must read back as zero after each call), on every path
+             of the kernel; timed at the main path's shape beside
+             torch.bincount (the yardstick, which the port never calls) and
+             one elementwise launch (the launch floor); one call of each
+             profiled (one kernel, no memset, no copy); the backend's whole
+             call, host to host, in turns with the CPU backend;
 3. K2        flash_attention's two kernels, each against its own plain torch
              version: the scalar kernel (csrc/flash_attention.cu) on every
              case, the sm90 kernel (csrc/flash_attention_sm90.cu, wgmma and
@@ -29,9 +35,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              single PyTorch call computes the SSD scan, so there is no
              yardstick);
 5. join      the Table-1 join (100 triggers x 2000 events) through the port's
-             Triggerflow on the card: 100 fires through K1 on the worker's
-             own card, the same final counts as the same run on the CPU
-             with the plain torch backend;
+             Triggerflow, on the card and on the CPU in turns (card, CPU,
+             CPU, card): 100 fires on each, through K1 on the worker's own
+             card (one launch a triage call), the same final counts on
+             each as on the CPU with the plain torch backend;
 6. serving   llama3.2-3b at full width in bf16 with seeded random weights:
              8 requests through ServingEngine under KedaAutoscaler, K2's
              sm90 kernel on every prefill layer; then, on the first batch, K2
@@ -205,29 +212,42 @@ def phase_k1():
     import numpy as np
     import torch
 
-    from repro_torch.kernels.event_join import ops
+    from repro_torch.kernels.event_join import dispatch, ops
     from repro_torch.kernels.event_join.ref import join_counts_torch
 
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(0)
     cases = [("empty", np.zeros(0, np.int32), 100),
-             ("padding", np.asarray([0, 1, -1, -1, 0], np.int32), 2)]
-    for n, T in [(4096, 100), (200_000, 100), (1_048_576, 4096), (100_000, 60_000)]:
+             ("padding", np.asarray([0, 1, -1, -1, 0], np.int32), 2),
+             ("all padding", np.full(50_000, -1, np.int32), 100)]
+    # the main path's shape, which is the one-block threshold (4096 events),
+    # and one past it; many blocks; the largest shared histogram; and global
+    # bins past it, in one block and in many
+    for n, T in [(4096, 100), (200_000, 100), (1_048_576, 4096), (100_000, 60_000),
+                 (50, 1), (100_000, 1), (4097, 100), (8192, 100), (300_000, 49_152),
+                 (1000, 49_153)]:
         cases.append((f"{n}x{T}", rng.integers(-1, T + 5, n).astype(np.int32), T))
+    # each case through the tensor API and through the join backend, whose
+    # buffers grow and whose scratch must read back as zero after each call
+    join = dispatch.CudaJoin(dev)
     max_err = 0
     for name, events, T in cases:
         counts = rng.integers(0, 5, T).astype(np.int32)
         expected = rng.integers(1, 3000, T).astype(np.int32)
         host = [torch.from_numpy(a) for a in (events, counts, expected)]
+        want_nc, want_f = (t.numpy() for t in join_counts_torch(*host))
         nc, fired = ops.event_join(*(t.to(dev) for t in host))
         torch.cuda.synchronize()
-        want_nc, want_f = join_counts_torch(*host)
-        err = max(int((nc.cpu() - want_nc).abs().max()),
-                  int((fired.cpu() - want_f).abs().max()))
+        got = [nc.cpu().numpy(), fired.cpu().numpy(), *join(events, counts, expected)]
+        err = max(int(np.abs(g.astype(np.int64) - w).max())
+                  for g, w in zip(got, (want_nc, want_f) * 2))
         if err:
             raise AssertionError(f"event_join {name}: differs from its plain version by {err}")
+        if join._scratch.count_nonzero().item():
+            raise AssertionError(f"event_join {name}: the backend's scratch is not zero "
+                                 f"after the call")
         max_err = max(max_err, err)
-    # timing at the main path's shape: one triage call of the Table-1 join,
+    # the main path's shape: one triage call of the Table-1 join,
     # run_once(4096) over 100 triggers, is 100 contiguous runs of row ids
     T, N = 100, 4096
     events = torch.repeat_interleave(torch.arange(T, dtype=torch.int32),
@@ -235,12 +255,46 @@ def phase_k1():
     counts = torch.zeros(T, dtype=torch.int32)
     expected = torch.full((T,), 2000, dtype=torch.int32)
     d = [t.to(dev) for t in (events, counts, expected)]
+    floor_out = torch.empty_like(d[1])
+    # device time: the kernel, its plain version, torch.bincount (the
+    # yardstick, which the port never calls) and one PyTorch elementwise
+    # launch on a [T] tensor, the least any single launch takes
     times = kernel_times(200, ms=lambda: ops.event_join(*d),
                          plain_ms=lambda: join_counts_torch(*d),
-                         library_ms=lambda: torch.bincount(d[0], minlength=T))
+                         library_ms=lambda: torch.bincount(d[0], minlength=T),
+                         launch_floor_ms=lambda: torch.add(d[1], 1, out=floor_out))
+    # what one call of each runs on the card: K1's kernel and nothing else,
+    # no memset and no copy (the backend's kernel reads and writes its
+    # pinned buffers); not seen where no profiling session saw the card
+    host = [t.numpy() for t in (events, counts, expected)]
+    activity = {}
+    for key, fn in (("event_join", lambda: ops.event_join(*d)),
+                    ("cuda_join", lambda: join(*host))):
+        prof = device_profile(fn, 1, top=8)
+        activity[key] = {"device_ops": prof["device_ops"], "names": prof["top_ms"]}
+        if prof["device_ms"] is not None and (
+                prof["device_ops"] != 1 or "::join<" not in prof["top_ms"][0][0]):
+            raise AssertionError(f"one {key} call ran {activity[key]} on the card: want "
+                                 f"K1's kernel alone")
+    # the backend's call on the card: its kernel reads and writes pinned
+    # host memory across PCIe
+    backend = device_profile(lambda: join(*host), 200)
+    # the join backend's whole call, host to host (numpy in, numpy out), in
+    # turns with the CPU backend: card, CPU, CPU, card
+    cpu_join = dispatch.resolve_join_backend("torch")[1]
+    host_ms = {"cuda": [], "cpu_torch": []}
+    for key in ("cuda", "cpu_torch", "cpu_torch", "cuda"):
+        fn = {"cuda": join, "cpu_torch": cpu_join}[key]
+        for _ in range(50):
+            fn(*host)
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn(*host)
+        host_ms[key].append((time.perf_counter() - t0) * 1e3 / 2000)
     b, by = bound_ms(4 * (N + 4 * T), N, "int32")
     emit(phase="k1", cases=[c[0] for c in cases], max_abs_err=max_err, shape=[N, T],
-         bound_ms=b, **times)
+         bound_ms=b, device_activity=activity, backend_device_ms=backend["device_ms"],
+         backend_host_ms=host_ms, **times)
     return {"max_abs_err": max_err, "bound_ms": b, "bound_by": by, **times}
 
 
@@ -499,28 +553,38 @@ def _join_run(device, n_triggers=100, events_each=2000):
 
 
 def phase_join():
+    """The Table-1 join on the card and on the CPU in turns (card, CPU, CPU,
+    card); K1's launch count is set to 0 just before each run and read just
+    after it."""
     from repro_torch.kernels.event_join import ops
 
-    ops.launches = 0
-    w, rate = _join_run("cuda")
-    launches = ops.launches
-    ref, ref_rate = _join_run("cpu")
-    plane = w._vector_plane
-    if w.device.type != "cuda" or plane is None or plane.calls == 0 \
-            or plane.backend != f"cuda:{w.device.index}" \
-            or ref._vector_plane.backend != "torch":
-        raise AssertionError(f"the join did not run on the worker's card: {plane}")
-    if launches != plane.calls:
-        raise AssertionError(f"{launches} K1 launches for {plane.calls} triage calls")
-    if w.stats.fires != 100 or ref.stats.fires != 100:
-        raise AssertionError(f"fires: cuda {w.stats.fires}, cpu {ref.stats.fires}")
-    for tid in ref.triggers:
-        if dict(w.context_of(tid)) != dict(ref.context_of(tid)):
-            raise AssertionError(f"context of {tid} differs from the CPU run")
-    emit(phase="join", triggers=100, events=200_000, fires=w.stats.fires,
-         backend=plane.backend, triage_calls=plane.calls, k1_launches=launches,
-         events_per_s_cuda=rate, events_per_s_cpu_torch=ref_rate)
-    return launches
+    runs = []
+    for device in ("cuda", "cpu", "cpu", "cuda"):
+        ops.launches = 0
+        w, rate = _join_run(device)
+        runs.append((device, w, rate, ops.launches))
+    ref = runs[1][1]
+    for device, w, rate, launches in runs:
+        plane = w._vector_plane
+        if plane is None or plane.calls == 0 or w.device.type != device \
+                or plane.backend != (f"cuda:{w.device.index}" if device == "cuda" else "torch"):
+            raise AssertionError(f"the {device} join did not run its own backend: {plane}")
+        if launches != (plane.calls if device == "cuda" else 0):
+            raise AssertionError(f"{launches} K1 launches for {plane.calls} triage calls "
+                                 f"on the {device}")
+        if w.stats.fires != 100:
+            raise AssertionError(f"fires on the {device}: {w.stats.fires}")
+        for tid in ref.triggers:
+            if dict(w.context_of(tid)) != dict(ref.context_of(tid)):
+                raise AssertionError(f"context of {tid} on the {device} differs from the "
+                                     f"CPU run")
+    card = runs[0][1]._vector_plane
+    emit(phase="join", triggers=100, events=200_000, fires=runs[0][1].stats.fires,
+         backend=card.backend, triage_calls=card.calls,
+         k1_launches=[r[3] for r in runs if r[0] == "cuda"],
+         events_per_s_cuda=[r[2] for r in runs if r[0] == "cuda"],
+         events_per_s_cpu_torch=[r[2] for r in runs if r[0] == "cpu"])
+    return runs[0][3]
 
 
 def _serve(cfg, counters):

@@ -36,7 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "event_join": [
-        ("event_join_launch", _I, [_P, _L, _P, _P, _I, _P, _P, _P, _I, _P]),
+        ("event_join_scratch_ints", _L, [_L, _I, _I]),
+        ("event_join_launch", _I, [_P, _L, _P, _P, _I, _P, _P, _I, _I, _P]),
+        ("event_join_roundtrip", _I, [_P, _L, _I, _P, _P, _I, _I, _P]),
         ("event_join_error_string", ctypes.c_char_p, [_I]),
     ],
     "flash_attention": [

@@ -7,8 +7,9 @@ ids, −1 = padding; ``counts`` and ``expected`` one entry per row), numpy
 ``(new_counts, fired)`` out — the reference's contract, so the copied
 ``core/batch.py`` stays as it is.  The backends:
 
-* ``cuda:<index>`` — the CUDA kernel (``ops.event_join``) on that device,
-  bound when the backend is built.  Raises where CUDA is absent;
+* ``cuda:<index>`` — the CUDA kernel on that device (``CudaJoin``, one
+  launch a call on pinned buffers), bound when the backend is built.  Raises
+  where CUDA is absent;
 * ``torch`` — the kernel's wrapper on CPU tensors, i.e. its plain torch
   version: a CPU worker runs the same wrapper (its input checks, dropped
   out-of-range ids, empty batch) that the card runs;
@@ -20,6 +21,7 @@ are the reference's backends and raise.
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -38,9 +40,43 @@ def _torch_join(events: np.ndarray, counts: np.ndarray,
     return nc.numpy(), fired.numpy()
 
 
+def pack_inputs(buf: np.ndarray, events, counts, expected) -> Tuple[int, int]:
+    """Write events, counts and expected one after the other into ``buf``
+    (int32, at least n + 2T long), the layout the kernel reads; returns
+    (n, T)."""
+    n, T = len(events), len(counts)
+    if len(expected) != T:
+        raise ValueError(f"event_join: counts ({T}) and expected ({len(expected)}) differ")
+    np.copyto(buf[:n], events)
+    np.copyto(buf[n:n + T], counts)
+    np.copyto(buf[n + T:n + 2 * T], expected)
+    return n, T
+
+
+def unpack_outputs(out: np.ndarray, T: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(new_counts, fired) from the kernel's [2, T] output, as two fresh
+    arrays: the next call overwrites ``out``."""
+    return out[:T].copy(), out[T:2 * T].copy()
+
+
+def grown(capacity: int, need: int) -> int:
+    """A buffer's capacity once it must hold ``need``: unchanged while it
+    does, else at least doubled."""
+    return capacity if need <= capacity else max(need, 2 * capacity)
+
+
 class CudaJoin:
-    """The kernel on one card, fixed when the backend is built: every call
-    copies its inputs to ``device`` and launches there."""
+    """The kernel on one card, fixed when the backend is built.  Per call:
+    the inputs packed into a pinned buffer, then one C call that launches
+    the kernel on the backend's own stream, reading that buffer and writing
+    a pinned [2, T] output across PCIe (no copy either way), and
+    synchronises that stream, so a join never waits for model work queued on
+    PyTorch's current stream.  The stream, the pinned buffers (grown by
+    doubling) and the kernel's zeroed scratch are made at the first call
+    that needs them, never in ``__init__``: a process may build the backend
+    before it forks, and a CUDA context does not survive a fork.  A lock
+    keeps two threads off the buffers.  A call that fails raises and drops
+    them all, the scratch included; nothing falls back to the CPU."""
 
     def __init__(self, device: torch.device) -> None:
         if device.type != "cuda" or device.index is None:
@@ -50,18 +86,55 @@ class CudaJoin:
             raise RuntimeError(f"join backend {str(device)!r} needs a CUDA device, "
                                "and none is available (use 'torch' on the CPU)")
         self.device = device
+        self._lock = threading.Lock()
+        self._drop()
+
+    def _drop(self) -> None:
+        self._stream: Optional[torch.cuda.Stream] = None
+        self._blocks = 0
+        # capacities in ints: n + 2T for the inputs; T for the [2, T] outputs
+        # and the scratch of 1 + T (the kernel's ticket, then its acc[T])
+        self._cap_in = self._cap_t = 0
+        self._host_in = self._host_out = self._scratch = None
+        self._host_in_np = self._host_out_np = None
+
+    def _reserve(self, n: int, T: int) -> None:
+        cap_in, cap_t = grown(self._cap_in, n + 2 * T), grown(self._cap_t, T)
+        if (cap_in, cap_t) == (self._cap_in, self._cap_t):
+            return
+        if self._stream is None:
+            from .ops import max_blocks
+
+            self._stream = torch.cuda.Stream(self.device)
+            self._blocks = max_blocks(self.device.index)
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            if cap_in != self._cap_in:
+                self._host_in = torch.empty(cap_in, dtype=torch.int32, pin_memory=True)
+                self._host_in_np = self._host_in.numpy()
+                self._cap_in = cap_in
+            if cap_t != self._cap_t:
+                self._host_out = torch.empty(2 * cap_t, dtype=torch.int32, pin_memory=True)
+                self._host_out_np = self._host_out.numpy()
+                # zeroed once, on this stream, ahead of every launch that uses it
+                self._scratch = torch.zeros(1 + cap_t, dtype=torch.int32, device=self.device)
+                self._cap_t = cap_t
 
     def __call__(self, events, counts, expected):
-        from .ops import event_join
+        from .ops import roundtrip
 
-        n, T = events.shape[0], counts.shape[0]
-        # one host-to-device copy for all three inputs
-        host = np.concatenate([np.asarray(events, np.int32),
-                               np.asarray(counts, np.int32),
-                               np.asarray(expected, np.int32)])
-        dev = torch.from_numpy(host).to(self.device)
-        nc, fired = event_join(dev[:n], dev[n:n + T], dev[n + T:])
-        return nc.cpu().numpy(), fired.cpu().numpy()
+        T = len(counts)
+        if T == 0 == len(expected):
+            return np.zeros(0, np.int32), np.zeros(0, np.int32)
+        with self._lock:
+            try:
+                self._reserve(len(events), T)
+                n, T = pack_inputs(self._host_in_np, events, counts, expected)
+                roundtrip(self._host_in, n, T, self._host_out, self._scratch, self._blocks,
+                          self._stream)
+            except Exception:
+                self._drop()
+                raise
+            return unpack_outputs(self._host_out_np, T)
 
 
 def resolve_join_backend(name: str) -> Tuple[str, Optional[JoinFn]]:

@@ -6,9 +6,11 @@ package, so it also runs on a machine without them:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1 counts integers (exact).  K2 has two routes, each held
-against its own plain version (the sm90 one splits p into two bf16 terms
-for P·V over kv tiles of 128, as the kernel does).  Kernel and plain version
+Tolerances: K1 counts integers (exact), through the tensor API
+(``ops.event_join``) and through the join backend (``dispatch.CudaJoin``).
+K2 has two routes, each held against its own plain version (the sm90 one
+splits p into two bf16 terms for P·V over kv tiles of 128, as the kernel
+does).  Kernel and plain version
 both compute in fp32 and differ only in the summation order (and in the
 rounding of p's second term, within 2**-16 max|v|), so in bf16 an output
 differs by at most one rounding flip, |got - want| <= 2**-7 |want| + 1e-3
@@ -21,10 +23,15 @@ included), so the state and fp32 outputs differ by at most
 1e-4·(1 + max|want|), and bf16 outputs by one rounding flip more,
 2**-7 |want|.
 """
+import os
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.event_join import dispatch as join_dispatch
 from repro_torch.kernels.event_join import ops as join_ops
 from repro_torch.kernels.event_join.ref import join_counts_torch
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -42,8 +49,14 @@ def cuda():
     return torch.device("cuda")
 
 
+# K1's paths: one block with shared bins (n <= 4096 events), many blocks
+# with shared bins up to 49 152 bins, and global bins past them (one block
+# or many)
 @pytest.mark.parametrize("T,N", [(100, 0), (100, 5), (100, 4096), (100, 200_000),
-                                 (4096, 1_048_576), (60_000, 100_000)])
+                                 (4096, 1_048_576), (60_000, 100_000),
+                                 (1, 50), (1, 100_000), (100, 4097), (100, 8193),
+                                 (100, 65_536), (49_152, 300_000), (49_152, 2000),
+                                 (49_153, 1000), (60_000, 7)])
 def test_event_join_kernel_matches_plain(cuda, T, N):
     rng = np.random.default_rng(N)
     events = torch.from_numpy(rng.integers(-1, T + 3, N).astype(np.int32))
@@ -52,6 +65,102 @@ def test_event_join_kernel_matches_plain(cuda, T, N):
     nc, fired = join_ops.event_join(events.to(cuda), counts.to(cuda), expected.to(cuda))
     want_nc, want_f = join_counts_torch(events, counts, expected)
     assert torch.equal(nc.cpu(), want_nc) and torch.equal(fired.cpu(), want_f)
+
+
+@pytest.mark.parametrize("kind,N", [("runs", 4096), ("runs", 200_000), ("padding", 5000),
+                                    ("padding", 50_000)])
+def test_event_join_kernel_on_runs_and_padding(cuda, kind, N):
+    """The worker's batches (contiguous runs of one row id, which the warp
+    vote folds into one atomic a run) and batches of padding alone."""
+    T = 100
+    if kind == "runs":
+        events = torch.arange(T, dtype=torch.int32).repeat_interleave(N // T)
+    else:
+        events = torch.full((N,), -1, dtype=torch.int32)
+    counts = torch.arange(T, dtype=torch.int32)
+    expected = torch.full((T,), N // T, dtype=torch.int32)
+    nc, fired = join_ops.event_join(events.to(cuda), counts.to(cuda), expected.to(cuda))
+    want_nc, want_f = join_counts_torch(events, counts, expected)
+    assert torch.equal(nc.cpu(), want_nc) and torch.equal(fired.cpu(), want_f)
+
+
+def _join_case(rng, n, T):
+    return (rng.integers(-1, T + 3, n).astype(np.int32),
+            rng.integers(0, 5, T).astype(np.int32), rng.integers(1, 30, T).astype(np.int32))
+
+
+def test_cuda_join_across_calls(cuda):
+    """The join backend over calls of growing n and changing T, through every
+    path of the kernel: exact against the plain backend, its scratch zero
+    after every call, and each call's arrays unchanged by the calls after."""
+    join = join_dispatch.CudaJoin(torch.device("cuda", torch.cuda.current_device()))
+    rng = np.random.default_rng(5)
+    kept = []
+    launches = join_ops.launches
+    shapes = [(0, 3), (10, 100), (4096, 100), (9000, 100), (200_000, 100), (5, 1),
+              (300_000, 4096), (1000, 60_000), (100_000, 60_000), (4096, 100)]
+    for n, T in shapes:
+        events, counts, expected = _join_case(rng, n, T)
+        nc, fired = join(events, counts, expected)
+        want_nc, want_f = join_dispatch._torch_join(events, counts, expected)
+        assert nc.dtype == fired.dtype == np.int32
+        np.testing.assert_array_equal(nc, want_nc)
+        np.testing.assert_array_equal(fired, want_f)
+        assert join._scratch.count_nonzero().item() == 0
+        kept.append((nc, fired, want_nc, want_f))
+    assert join_ops.launches == launches + len(shapes)
+    for nc, fired, want_nc, want_f in kept:
+        np.testing.assert_array_equal(nc, want_nc)
+        np.testing.assert_array_equal(fired, want_f)
+
+
+def test_cuda_join_shared_between_threads(cuda):
+    """One backend called from more threads than the host has cores, each
+    with inputs of its own and a short switch interval: every result exact,
+    which a lost update of the shared buffers would break."""
+    join = join_dispatch.CudaJoin(torch.device("cuda", torch.cuda.current_device()))
+    n_threads = 2 * (os.cpu_count() or 4)
+    cases = [_join_case(np.random.default_rng(100 + i), 500 + 300 * i, 7 + i)
+             for i in range(n_threads)]
+    wants = [join_dispatch._torch_join(*case) for case in cases]
+    bad = []
+
+    def work(i):
+        for _ in range(40):
+            got = join(*cases[i])
+            if not all(np.array_equal(g, w) for g, w in zip(got, wants[i])):
+                bad.append(i)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert bad == []
+
+
+def test_cuda_join_does_not_wait_for_other_streams(cuda):
+    """A join call returns while PyTorch's current stream on the same card is
+    still busy: the backend copies, launches and synchronises on a stream of
+    its own."""
+    join = join_dispatch.CudaJoin(torch.device("cuda", torch.cuda.current_device()))
+    events, counts, expected = _join_case(np.random.default_rng(6), 4096, 100)
+    join(events, counts, expected)  # makes the stream and the buffers
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # about a second of spinning on the current stream
+    nc, fired = join(events, counts, expected)
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert busy
+    want_nc, want_f = join_dispatch._torch_join(events, counts, expected)
+    np.testing.assert_array_equal(nc, want_nc)
+    np.testing.assert_array_equal(fired, want_f)
 
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,Dv,dtype,causal", [

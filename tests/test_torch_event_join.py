@@ -2,15 +2,21 @@
 
 On the CPU the port's wrapper runs its plain torch version; the JAX side runs
 the Pallas kernel in interpret mode, as tests/test_kernels.py does.  Counts
-are integers, so every comparison is exact.  The CUDA kernel itself is held
-against the plain version in tests/test_torch_cuda.py and chip_smoke.py.
+are integers, so every comparison is exact.  The join backend's host path
+(``dispatch.CudaJoin``: the inputs packed into one buffer, the [2, T] output
+unpacked into two fresh arrays, buffers grown by doubling) runs here with the
+plain version in place of the copy, the launch and the copy back.  The CUDA
+kernel itself is held against the plain version in tests/test_torch_cuda.py
+and chip_smoke.py.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _hypothesis_compat import given, settings, st
 
 from repro.kernels.event_join import dispatch as ref_dispatch
+from repro.kernels.event_join.event_join import event_join_counts
 from repro.kernels.event_join.ops import event_join as jax_event_join
 from repro.kernels.event_join.ref import join_counts_ref
 from repro_torch.kernels.event_join import dispatch, ops
@@ -140,3 +146,146 @@ def test_cuda_backend_is_bound_to_its_device(monkeypatch):
     assert f1.device == torch.device("cuda", 1) and f0.device == torch.device("cuda", 0)
     with pytest.raises(ValueError, match="index"):
         dispatch.CudaJoin(torch.device("cuda"))
+
+
+class _HostPath:
+    """The join backend's host path on the CPU: its input and output buffers
+    grown as ``CudaJoin`` grows them, the inputs packed by
+    ``dispatch.pack_inputs``, the plain version on the packed buffer where
+    the card copies, launches and copies back, and the [2, T] output
+    unpacked by ``dispatch.unpack_outputs``."""
+
+    def __init__(self):
+        self.host_in = np.zeros(0, np.int32)
+        self.host_out = np.zeros(0, np.int32)
+
+    def __call__(self, events, counts, expected):
+        n, T = len(events), len(counts)
+        if dispatch.grown(len(self.host_in), n + 2 * T) != len(self.host_in):
+            self.host_in = np.zeros(dispatch.grown(len(self.host_in), n + 2 * T), np.int32)
+        if dispatch.grown(len(self.host_out) // 2, T) != len(self.host_out) // 2:
+            self.host_out = np.zeros(2 * dispatch.grown(len(self.host_out) // 2, T), np.int32)
+        n, T = dispatch.pack_inputs(self.host_in, events, counts, expected)
+        packed = torch.from_numpy(self.host_in)
+        nc, fired = ops.event_join(packed[:n], packed[n:n + T], packed[n + T:n + 2 * T])
+        self.host_out[:2 * T] = torch.cat([nc, fired]).numpy()
+        return dispatch.unpack_outputs(self.host_out, T)
+
+
+def _assert_matches_jax(events, counts, expected, got):
+    """``got`` against join_counts_ref and, where N > 0 (the Pallas wrapper
+    divides by zero at N = 0), the Pallas kernel in interpret mode; exact."""
+    args = [jnp.asarray(a) for a in (events, counts, expected)]
+    wants = [join_counts_ref(*args)]
+    if len(events):
+        wants.append(event_join_counts(*args, interpret=True))
+    for nc, fired in wants:
+        for g, w in zip(got, (nc, fired)):
+            assert g.dtype == np.int32
+            np.testing.assert_array_equal(g, np.asarray(w))
+
+
+def _runs(T, n):
+    """The worker's batches: contiguous runs of one trigger row id."""
+    return np.repeat(np.arange(T, dtype=np.int32), n // T)
+
+
+# (name, events, T): N 0, padding only, ids at and past T, one trigger, T
+# past the kernel's 49 152 shared-memory bins, and the main path's shape
+HOST_CASES = [("empty", np.zeros(0, np.int32), 5),
+              ("all padding", np.full(300, -1, np.int32), 7),
+              ("ids past T", np.random.default_rng(1).integers(-1, 40, 500).astype(np.int32), 20),
+              ("one trigger", np.random.default_rng(2).integers(-1, 3, 100).astype(np.int32), 1),
+              ("past the shared bins",
+               np.random.default_rng(3).integers(-1, 49_160, 200).astype(np.int32), 49_153),
+              ("main path", _runs(100, 4096), 100)]
+
+
+@pytest.mark.parametrize("name,events,T", HOST_CASES, ids=[c[0] for c in HOST_CASES])
+def test_host_path_matches_pallas_and_ref(name, events, T):
+    rng = np.random.default_rng(T)
+    counts = rng.integers(0, 5, T).astype(np.int32)
+    expected = rng.integers(1, 60, T).astype(np.int32)
+    _assert_matches_jax(events, counts, expected, _HostPath()(events, counts, expected))
+
+
+def test_host_path_buffers_grow_between_calls():
+    """One host path through every case of HOST_CASES in turn, its buffers
+    growing and then shrinking in use: each call exact, and each call's
+    arrays unchanged by the calls after it."""
+    path = _HostPath()
+    kept = []
+    for i, (_, events, T) in enumerate(HOST_CASES + HOST_CASES[:2]):
+        rng = np.random.default_rng(i)
+        counts = rng.integers(0, 5, T).astype(np.int32)
+        expected = rng.integers(1, 60, T).astype(np.int32)
+        got = path(events, counts, expected)
+        want = [np.asarray(a) for a in join_counts_ref(
+            *(jnp.asarray(a) for a in (events, counts, expected)))]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        kept.append((got, want))
+    assert len(path.host_in) >= 49_153 * 2 + 200 and len(path.host_out) >= 2 * 49_153
+    for got, want in kept:
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_unpacked_arrays_are_not_views_of_the_buffer():
+    """The next call overwrites the output buffer, so the arrays a call
+    returns must be copies of it."""
+    path = _HostPath()
+    events, counts, expected = _case(10, 200, 4)
+    nc, fired = path(events, counts, expected)
+    first = nc.copy(), fired.copy()
+    assert not np.shares_memory(nc, path.host_out) and not np.shares_memory(fired, path.host_out)
+    path(np.full(200, 3, np.int32), counts + 7, expected)
+    np.testing.assert_array_equal(nc, first[0])
+    np.testing.assert_array_equal(fired, first[1])
+
+
+@pytest.mark.parametrize("capacity,need,want", [(0, 5, 5), (5, 5, 5), (5, 6, 10), (10, 100, 100),
+                                                (64, 3, 64)])
+def test_buffers_grow_by_doubling(capacity, need, want):
+    assert dispatch.grown(capacity, need) == want
+
+
+def test_pack_rejects_mismatched_rows():
+    with pytest.raises(ValueError, match="differ"):
+        dispatch.pack_inputs(np.zeros(16, np.int32), np.zeros(3, np.int32),
+                             np.zeros(2, np.int32), np.zeros(3, np.int32))
+
+
+_HYPOTHESIS_PATH = _HostPath()
+
+
+@st.composite
+def _join_inputs(draw):
+    T = draw(st.integers(1, 48))
+    n = draw(st.integers(0, 300))
+    ids = st.integers(-1, T + 4)
+    events = np.asarray(draw(st.lists(ids, min_size=n, max_size=n)), np.int32)
+    counts = np.asarray(draw(st.lists(st.integers(0, 9), min_size=T, max_size=T)), np.int32)
+    expected = np.asarray(draw(st.lists(st.integers(1, 40), min_size=T, max_size=T)), np.int32)
+    return events, counts, expected
+
+
+@settings(max_examples=15, deadline=None)
+@given(_join_inputs())
+def test_host_path_property(inputs):
+    """Random N, T and ids (padding and ids >= T included) through one host
+    path shared by every example, so its buffers carry over from one
+    example to the next, as the backend's do between triage calls."""
+    events, counts, expected = inputs
+    _assert_matches_jax(events, counts, expected, _HYPOTHESIS_PATH(events, counts, expected))
+
+
+def test_cuda_backend_raises_rather_than_falling_back(monkeypatch):
+    """Where the card cannot be reached at the first call, the backend
+    raises and keeps nothing: no CPU result comes back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    join = dispatch.CudaJoin(torch.device("cuda", 0))
+    events, counts, expected = _case(4, 20, 1)
+    with pytest.raises(RuntimeError):
+        join(events, counts, expected)
+    assert join._stream is None and join._scratch is None and join._cap_in == 0
