@@ -10,11 +10,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. K1        event_join against its plain torch version, exact, through the
              tensor API and through the join backend (CudaJoin, whose
              scratch must read back as zero after each call), on every path
-             of the kernel; timed at the main path's shape beside
-             torch.bincount (the yardstick, which the port never calls) and
-             one elementwise launch (the launch floor); one call of each
-             profiled (one kernel, no memset, no copy); the backend's whole
-             call, host to host, in turns with the CPU backend;
+             of the kernel; timed at the main path's shape through the
+             backend (the main path's K1, on pinned host memory, bound by
+             PCIe) beside the plain version of that call, torch.bincount
+             (the yardstick, which the port never calls), the tensor API on
+             device memory and one elementwise launch (the launch floor);
+             one call of each wrapper profiled (one kernel, no memset, no
+             copy); the backend's whole call, host to host, in turns with
+             the CPU backend;
 3. K2        flash_attention's two kernels, each against its own plain torch
              version: the scalar kernel (csrc/flash_attention.cu) on every
              case, the sm90 kernel (csrc/flash_attention_sm90.cu, wgmma and
@@ -77,6 +80,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12                 # H100 SXM HBM3
+PEAK_PCIE_BYTES_S = 64e9               # PCIe Gen5 x16, each way (128 GB/s both)
 PEAK_OPS_S = {"bfloat16": 989e12,      # dense bf16 tensor cores
               "tfloat32": 494.7e12,    # dense tf32 tensor cores: fp32 operands
               "float32": 67e12,        # fp32 outside the tensor cores
@@ -255,30 +259,49 @@ def phase_k1():
     counts = torch.zeros(T, dtype=torch.int32)
     expected = torch.full((T,), 2000, dtype=torch.int32)
     d = [t.to(dev) for t in (events, counts, expected)]
+    host = [t.numpy() for t in (events, counts, expected)]
     floor_out = torch.empty_like(d[1])
-    # device time: the kernel, its plain version, torch.bincount (the
-    # yardstick, which the port never calls) and one PyTorch elementwise
-    # launch on a [T] tensor, the least any single launch takes
-    times = kernel_times(200, ms=lambda: ops.event_join(*d),
-                         plain_ms=lambda: join_counts_torch(*d),
+    # the plain version of the backend's call, on the same pinned input: one
+    # copy up, the plain version, one copy of the [2, T] down, and the
+    # stream synchronised, as the backend's call is
+    pin_in = torch.from_numpy(np.concatenate(host)).pin_memory()
+    pin_out = torch.empty(2 * T, dtype=torch.int32).pin_memory()
+    dev_in = torch.empty(N + 2 * T, dtype=torch.int32, device=dev)
+
+    def plain_call():
+        dev_in.copy_(pin_in, non_blocking=True)
+        out = torch.stack(join_counts_torch(dev_in[:N], dev_in[N:N + T], dev_in[N + T:]))
+        pin_out.copy_(out.view(-1), non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+
+    # device time of the main path's K1, the backend's call: its kernel reads
+    # the packed pinned input and writes the pinned [2, T] output across
+    # PCIe; beside it the plain version of that call, torch.bincount (the
+    # yardstick, on device memory, which the port never calls), the kernel
+    # through the tensor API on device memory (no runtime caller), and one
+    # PyTorch elementwise launch on a [T] tensor, the least any single launch
+    # takes
+    times = kernel_times(200, ms=lambda: join(*host), plain_ms=plain_call,
                          library_ms=lambda: torch.bincount(d[0], minlength=T),
+                         device_memory_ms=lambda: ops.event_join(*d),
                          launch_floor_ms=lambda: torch.add(d[1], 1, out=floor_out))
     # what one call of each runs on the card: K1's kernel and nothing else,
     # no memset and no copy (the backend's kernel reads and writes its
-    # pinned buffers); not seen where no profiling session saw the card
-    host = [t.numpy() for t in (events, counts, expected)]
+    # pinned buffers); a call whose sessions all saw no device activity
+    # fails the phase
     activity = {}
     for key, fn in (("event_join", lambda: ops.event_join(*d)),
                     ("cuda_join", lambda: join(*host))):
-        prof = device_profile(fn, 1, top=8)
-        activity[key] = {"device_ops": prof["device_ops"], "names": prof["top_ms"]}
-        if prof["device_ms"] is not None and (
-                prof["device_ops"] != 1 or "::join<" not in prof["top_ms"][0][0]):
+        prof = device_profile(fn, 1, top=8, attempts=6)
+        activity[key] = {"device_ops": prof["device_ops"], "names": prof["top_ms"],
+                         "sessions": prof["sessions"]}
+        if prof["device_ms"] is None:
+            raise AssertionError(f"no profiling session of one {key} call saw the card "
+                                 f"({prof['sessions']} sessions): its device activity "
+                                 f"is unchecked")
+        if prof["device_ops"] != 1 or "::join<" not in prof["top_ms"][0][0]:
             raise AssertionError(f"one {key} call ran {activity[key]} on the card: want "
                                  f"K1's kernel alone")
-    # the backend's call on the card: its kernel reads and writes pinned
-    # host memory across PCIe
-    backend = device_profile(lambda: join(*host), 200)
     # the join backend's whole call, host to host (numpy in, numpy out), in
     # turns with the CPU backend: card, CPU, CPU, card
     cpu_join = dispatch.resolve_join_backend("torch")[1]
@@ -291,10 +314,15 @@ def phase_k1():
         for _ in range(2000):
             fn(*host)
         host_ms[key].append((time.perf_counter() - t0) * 1e3 / 2000)
-    b, by = bound_ms(4 * (N + 4 * T), N, "int32")
+    # the bound of the main path's call: its input crosses PCIe to the card
+    # and its [2, T] back (the two directions at once, so the larger), next
+    # to the tensor API's bound on device memory
+    device_memory_bound, _ = bound_ms(4 * (N + 4 * T), N, "int32")
+    pcie_bound = 4 * max(N + 2 * T, 2 * T) / PEAK_PCIE_BYTES_S * 1e3
+    b, by = max(pcie_bound, device_memory_bound), "bytes"
     emit(phase="k1", cases=[c[0] for c in cases], max_abs_err=max_err, shape=[N, T],
-         bound_ms=b, device_activity=activity, backend_device_ms=backend["device_ms"],
-         backend_host_ms=host_ms, **times)
+         bound_ms=b, device_memory_bound_ms=device_memory_bound,
+         device_activity=activity, backend_host_ms=host_ms, **times)
     return {"max_abs_err": max_err, "bound_ms": b, "bound_by": by, **times}
 
 

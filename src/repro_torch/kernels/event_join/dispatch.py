@@ -103,25 +103,41 @@ class CudaJoin:
         if (cap_in, cap_t) == (self._cap_in, self._cap_t):
             return
         if self._stream is None:
-            from .ops import max_blocks
+            self._open()
+        if cap_in != self._cap_in:
+            self._host_in = self._pinned(cap_in)
+            self._host_in_np = self._host_in.numpy()
+            self._cap_in = cap_in
+        if cap_t != self._cap_t:
+            self._host_out = self._pinned(2 * cap_t)
+            self._host_out_np = self._host_out.numpy()
+            self._scratch = self._zeroed_scratch(1 + cap_t)
+            self._cap_t = cap_t
 
-            self._stream = torch.cuda.Stream(self.device)
-            self._blocks = max_blocks(self.device.index)
+    # the card's side of the backend: its stream, its buffers and its launch
+    # (the CPU tests put host tensors and the plain version in their place)
+    def _open(self) -> None:
+        from .ops import max_blocks
+
+        self._stream = torch.cuda.Stream(self.device)
+        self._blocks = max_blocks(self.device.index)
+
+    def _pinned(self, ints: int) -> torch.Tensor:
+        with torch.cuda.device(self.device):
+            return torch.empty(ints, dtype=torch.int32, pin_memory=True)
+
+    def _zeroed_scratch(self, ints: int) -> torch.Tensor:
+        # zeroed once, on the backend's stream, ahead of every launch that uses it
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            if cap_in != self._cap_in:
-                self._host_in = torch.empty(cap_in, dtype=torch.int32, pin_memory=True)
-                self._host_in_np = self._host_in.numpy()
-                self._cap_in = cap_in
-            if cap_t != self._cap_t:
-                self._host_out = torch.empty(2 * cap_t, dtype=torch.int32, pin_memory=True)
-                self._host_out_np = self._host_out.numpy()
-                # zeroed once, on this stream, ahead of every launch that uses it
-                self._scratch = torch.zeros(1 + cap_t, dtype=torch.int32, device=self.device)
-                self._cap_t = cap_t
+            return torch.zeros(ints, dtype=torch.int32, device=self.device)
 
-    def __call__(self, events, counts, expected):
+    def _launch(self, n: int, T: int) -> None:
         from .ops import roundtrip
 
+        roundtrip(self._host_in, n, T, self._host_out, self._scratch, self._blocks,
+                  self._stream)
+
+    def __call__(self, events, counts, expected):
         T = len(counts)
         if T == 0 == len(expected):
             return np.zeros(0, np.int32), np.zeros(0, np.int32)
@@ -129,8 +145,7 @@ class CudaJoin:
             try:
                 self._reserve(len(events), T)
                 n, T = pack_inputs(self._host_in_np, events, counts, expected)
-                roundtrip(self._host_in, n, T, self._host_out, self._scratch, self._blocks,
-                          self._stream)
+                self._launch(n, T)
             except Exception:
                 self._drop()
                 raise

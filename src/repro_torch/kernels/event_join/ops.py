@@ -7,6 +7,10 @@ one launch on pinned host buffers, which the kernel reads and writes
 directly, and one synchronisation of the backend's own stream, in one C
 call.  ``launches`` counts the kernel's launches from both, so a run can
 show that its path went through it.
+
+The worker reaches the card only through ``roundtrip``.  ``event_join``'s
+card branch has no caller in the runtime: it is the kernel's wrapper on
+device tensors, for the card tests and ``chip_smoke.py``'s phase k1.
 """
 from __future__ import annotations
 

@@ -148,28 +148,42 @@ def test_cuda_backend_is_bound_to_its_device(monkeypatch):
         dispatch.CudaJoin(torch.device("cuda"))
 
 
-class _HostPath:
-    """The join backend's host path on the CPU: its input and output buffers
-    grown as ``CudaJoin`` grows them, the inputs packed by
-    ``dispatch.pack_inputs``, the plain version on the packed buffer where
-    the card copies, launches and copies back, and the [2, T] output
-    unpacked by ``dispatch.unpack_outputs``."""
+class _HostPath(dispatch.CudaJoin):
+    """The join backend on the CPU: ``CudaJoin`` itself, which reserves,
+    grows, packs and unpacks its buffers as on the card, with its four card
+    methods replaced: no stream, host tensors for the pinned buffers and the
+    scratch, and for the launch the plain version on the packed input,
+    written into the [2, T] output after checking that the buffers hold what
+    ``ops.roundtrip`` demands of them."""
 
     def __init__(self):
-        self.host_in = np.zeros(0, np.int32)
-        self.host_out = np.zeros(0, np.int32)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch.cuda, "is_available", lambda: True)
+            super().__init__(torch.device("cuda", 0))
 
-    def __call__(self, events, counts, expected):
-        n, T = len(events), len(counts)
-        if dispatch.grown(len(self.host_in), n + 2 * T) != len(self.host_in):
-            self.host_in = np.zeros(dispatch.grown(len(self.host_in), n + 2 * T), np.int32)
-        if dispatch.grown(len(self.host_out) // 2, T) != len(self.host_out) // 2:
-            self.host_out = np.zeros(2 * dispatch.grown(len(self.host_out) // 2, T), np.int32)
-        n, T = dispatch.pack_inputs(self.host_in, events, counts, expected)
-        packed = torch.from_numpy(self.host_in)
+    def _open(self):
+        self._stream, self._blocks = "stream", 1
+
+    def _pinned(self, ints):
+        return torch.zeros(ints, dtype=torch.int32)
+
+    def _zeroed_scratch(self, ints):
+        return torch.zeros(ints, dtype=torch.int32)
+
+    def _launch(self, n, T):
+        assert self._host_in.numel() >= n + 2 * T and self._host_out.numel() >= 2 * T
+        assert self._scratch.numel() >= 1 + T and not self._scratch.any()
+        packed = self._host_in
         nc, fired = ops.event_join(packed[:n], packed[n:n + T], packed[n + T:n + 2 * T])
-        self.host_out[:2 * T] = torch.cat([nc, fired]).numpy()
-        return dispatch.unpack_outputs(self.host_out, T)
+        self._host_out[:2 * T] = torch.cat([nc, fired])
+
+    @property
+    def host_in(self):
+        return self._host_in_np
+
+    @property
+    def host_out(self):
+        return self._host_out_np
 
 
 def _assert_matches_jax(events, counts, expected, got):
@@ -242,6 +256,24 @@ def test_unpacked_arrays_are_not_views_of_the_buffer():
     path(np.full(200, 3, np.int32), counts + 7, expected)
     np.testing.assert_array_equal(nc, first[0])
     np.testing.assert_array_equal(fired, first[1])
+
+
+def test_backend_reserves_by_doubling_and_keeps_what_suffices():
+    """``CudaJoin``'s own capacity decisions: inputs n + 2T, outputs [2, T],
+    scratch 1 + T; each grows only when a call needs more, at least
+    doubling, and a buffer that suffices is kept (the same tensor)."""
+    join = _HostPath()
+    join(np.zeros(10, np.int32), np.zeros(3, np.int32), np.ones(3, np.int32))
+    assert (join._cap_in, join._cap_t) == (16, 3)
+    assert (join._host_in.numel(), join._host_out.numel(), join._scratch.numel()) == (16, 6, 4)
+    kept = join._host_in, join._host_out, join._scratch
+    join(np.zeros(12, np.int32), np.zeros(2, np.int32), np.ones(2, np.int32))
+    assert all(a is b for a, b in zip(kept, (join._host_in, join._host_out, join._scratch)))
+    join(np.zeros(12, np.int32), np.zeros(4, np.int32), np.ones(4, np.int32))
+    assert (join._cap_in, join._cap_t) == (32, 6) and join._host_in is not kept[0]
+    assert (join._host_out.numel(), join._scratch.numel()) == (12, 7)
+    join(np.zeros(100, np.int32), np.zeros(4, np.int32), np.ones(4, np.int32))
+    assert (join._cap_in, join._cap_t) == (108, 6) and join._scratch.numel() == 7
 
 
 @pytest.mark.parametrize("capacity,need,want", [(0, 5, 5), (5, 5, 5), (5, 6, 10), (10, 100, 100),
