@@ -61,11 +61,37 @@ Phases, in order; any failure raises and the script exits non-zero:
              state between chunks dropped), with the activations in fp32:
              in bf16 rounding alone moves the logits of this 38-layer
              random-weight model by O(1).  These fp32 forwards take the
-             scalar routes of K2 and K3.
+             scalar routes of K2 and K3;
+8. shards    the Table-1 join through a ProcessShardPool of 4 shard
+             processes over 8 partitions of a FilePartitionedEventStore
+             (the pool's defaults: batches of 512, every_batch, fsync), on
+             the card (shards from the forkserver) and on the CPU (forked
+             shards), in turns twice (card, CPU, CPU, card): 100 fires and
+             the CPU run's contexts on each; in the card's shards K1 on the
+             pool's card, one launch per triage call, counted in the shard
+             processes by ShardJoinCounts (a child_init) into shared memory;
+             the shards' start time, events/s, seconds in join calls;
+9. scale     tests/test_autoscale.py's Fig. 8 lifecycle on a ProcessShardPool
+             under KedaAutoscaler, card, CPU, CPU, card: burst, scale up,
+             drain to zero, a second burst scales from zero; the time from
+             the second publish to its first fire (and to its first join
+             call), the cold start a shard adds;
+10. chaos    run_soak_proc on the card (seeded SIGKILLs, a torn segment
+             tail; exactly-once results equal to the oracle), whose `true`
+             triggers make no join call; then the Table-1 join's shape on
+             the card under the same kind of chaos: no event lost or
+             committed twice, every count at least its events (a plain
+             counter is at-least-once), K1 launches equal to triage calls;
+11. orchestrators  the DAG diamond and map-join chain, an ASL state machine
+             with choice, parallel and map, workflow-as-code with
+             suspend/replay and one federated-learning run with threshold
+             and timeout, on Triggerflow(device="cuda"), equal to a
+             device="cpu" run (they keep their event log: no K1).
 
 Each kernel's launch count is set to 0 just before the path that should
 launch it (phases 5, 6 and 7, and the fp32 forwards of 7 for the scalar
-kernels of K2 and K3) and read just after.  Earlier lines print JSON
+kernels of K2 and K3; in phases 8-10, K1's count in the shard processes)
+and read just after.  Earlier lines print JSON
 results, the card's name and power limit and a "kernels" line; the last line
 is {"ok": true, "device": {...}}.  Without CUDA, or away from the repo, it
 exits non-zero and prints no result.
@@ -75,6 +101,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -928,6 +955,488 @@ def phase_hybrid():
             "k2_scalar": fp32_launches["launches_scalar"]}
 
 
+# ------------------------------------------------ process shards (8-10) ----
+class ShardJoinCounts:
+    """``child_init`` for the port's process shards, handed to each shard
+    process (pickled under ``spawn`` and ``forkserver``).  Each shard takes
+    a slot of shared memory in ``child_init`` and from then on writes only
+    its own slot, with no lock: a SIGKILL (phase 10) can leave no lock held
+    that the other shards wait on.  The only lock, the one that hands out
+    slots, is taken before a shard reports ready, and a shard is killed
+    only after ``start_shards`` has returned.  Summed over the pool's
+    shards (``read``): the join planes built (``planes``) and those whose
+    backend is not ``want`` (``wrong_backend``); the vector plane's join
+    calls, one per triage call (``triage_calls``), and the K1 launches they
+    made by the wrapper's own count, ``ops.launches`` (``k1_launches``);
+    the seconds spent in join calls (``join_s``) and in each shard's first
+    one, where a card shard makes its CUDA context (``first_join_s``).
+    ``first_call()`` and ``first_fire()`` are the wall clock of the first
+    join call and of the first fire since ``reset``; the fire clock is the
+    action ``stamp_first_fire``.  ``soak`` also registers the chaos soak's
+    actions (its own ``child_init``)."""
+
+    SLOTS = 64
+    INTS = ("planes", "wrong_backend", "triage_calls", "k1_launches")
+    SECS = ("join_s", "first_join_s", "first_call", "first_fire")
+
+    def __init__(self, soak: bool = False):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.want, self.soak = "", soak
+        self.next_slot = ctx.Value("i", 0)
+        self.ints = ctx.RawArray("q", self.SLOTS * len(self.INTS))
+        self.secs = ctx.RawArray("d", self.SLOTS * len(self.SECS))
+
+    def reset(self) -> None:
+        self.next_slot.value = 0
+        self.ints[:] = [0] * len(self.ints)
+        self.secs[:] = [0.0] * len(self.secs)
+
+    def _column(self, array, fields, name) -> list:
+        k = fields.index(name)
+        return [array[slot * len(fields) + k] for slot in range(self.SLOTS)]
+
+    def read(self) -> dict:
+        out = {name: sum(self._column(self.ints, self.INTS, name)) for name in self.INTS}
+        for name in ("join_s", "first_join_s"):
+            out[name] = sum(self._column(self.secs, self.SECS, name))
+        return out
+
+    def first_call(self) -> float:
+        return min((t for t in self._column(self.secs, self.SECS, "first_call") if t),
+                   default=0.0)
+
+    def first_fire(self) -> float:
+        return min((t for t in self._column(self.secs, self.SECS, "first_fire") if t),
+                   default=0.0)
+
+    def __call__(self, backend) -> None:
+        from repro_torch.core.actions import register_action
+        from repro_torch.kernels.event_join import dispatch, ops
+
+        if self.soak:
+            from repro_torch.chaos.soak import register_soak_functions
+            register_soak_functions()
+        with self.next_slot.get_lock():
+            slot = self.next_slot.value
+            self.next_slot.value += 1
+        if slot >= self.SLOTS:
+            raise RuntimeError(f"more than {self.SLOTS} shard processes since reset")
+        ints, secs = self.ints, self.secs
+        i0, s0 = slot * len(self.INTS), slot * len(self.SECS)
+        resolve, join = dispatch.resolve_join_backend, dispatch.join_counts_segments
+
+        def resolved(name):
+            out = resolve(name)
+            ints[i0] += 1
+            ints[i0 + 1] += out[0] != self.want
+            return out
+
+        def counted(lens, counts, expected, fn):
+            before, t0 = ops.launches, time.perf_counter()
+            out = join(lens, counts, expected, fn)
+            seconds = time.perf_counter() - t0
+            if not ints[i0 + 2]:
+                secs[s0 + 1] = seconds
+                secs[s0 + 2] = time.time()
+            ints[i0 + 2] += 1
+            ints[i0 + 3] += ops.launches - before
+            secs[s0] += seconds
+            return out
+
+        def stamp_first_fire(ctx, event, params):
+            if not secs[s0 + 3]:
+                secs[s0 + 3] = time.time()
+
+        # the worker is built after child_init: its join plane takes these
+        dispatch.resolve_join_backend = resolved
+        dispatch.join_counts_segments = counted
+        register_action("stamp_first_fire", stamp_first_fire)
+
+
+def _want_backend(pool) -> str:
+    return str(pool.device) if pool.device.type == "cuda" else "torch"
+
+
+def _join_triggers(n_triggers, events_each):
+    from repro_torch.core import make_trigger
+
+    return [make_trigger(f"j{t}", condition={"name": "counter", "expected": events_each,
+                                             "aggregate": False},
+                         action={"name": "noop"}, trigger_id=f"jt{t}", transient=False)
+            for t in range(n_triggers)]
+
+
+def _shard_join(device, root, counts, n_triggers=100, events_each=2000):
+    """The Table-1 join through 4 shard processes of a ProcessShardPool over
+    8 partitions of a FilePartitionedEventStore (the pool's defaults:
+    batches of 512, fsync, every_batch)."""
+    from repro_torch.bus import ProcessShardPool
+    from repro_torch.core import termination_event
+
+    n = n_triggers * events_each
+    pool = ProcessShardPool(str(root), num_partitions=8, device=device, child_init=counts)
+    try:
+        counts.want = _want_backend(pool)
+        pool.create_workflow("join")
+        for trg in _join_triggers(n_triggers, events_each):
+            pool.add_trigger("join", trg)
+        pool.publish_batch("join", [termination_event(f"j{i % n_triggers}", i)
+                                    for i in range(n)])
+        counts.reset()
+        t0 = time.perf_counter()
+        pool.start_shards("join", 4)
+        t1 = time.perf_counter()
+        pool.wait_drained("join", timeout=300)
+        t2 = time.perf_counter()
+        out = {"device": str(pool.device), "start_method": pool.start_method,
+               "start_s": t1 - t0, "drain_s": t2 - t1, "events_per_s": n / (t2 - t1),
+               "fires": pool.total_fires("join"),
+               "contexts": {f"jt{t}": pool.trigger_context("join", f"jt{t}")
+                            for t in range(n_triggers)},
+               "committed": len(pool.event_store.committed_events("join"))}
+    finally:
+        pool.stop_all()
+    return dict(out, **counts.read())
+
+
+def phase_shards(tmp):
+    """The Table-1 join through process shards on the card and on the CPU
+    in turns, twice (card, CPU, CPU, card): 100 fires and the same contexts
+    on each, K1 launched in the card's shards once per triage call on the
+    pool's card; K1's counts set to 0 just before each run and read just
+    after.  The first card run starts the forkserver."""
+    counts = ShardJoinCounts()
+    runs = [_shard_join(device, tmp / f"shards{i}", counts)
+            for i, device in enumerate(("cuda", "cpu", "cpu", "cuda") * 2)]
+    ref = runs[1]["contexts"]
+    for r in runs:
+        card = r["device"].startswith("cuda")
+        if r["fires"] != 100 or r["committed"] != 200_000:
+            raise AssertionError(f"shard join on {r['device']}: {r['fires']} fires, "
+                                 f"{r['committed']} committed")
+        if r["contexts"] != ref:
+            raise AssertionError(f"a trigger's context on {r['device']} differs from "
+                                 f"the CPU run")
+        if r["planes"] != 4 or r["wrong_backend"] or not r["triage_calls"]:
+            raise AssertionError(f"the shards on {r['device']} did not all run their "
+                                 f"own backend: {r}")
+        if r["k1_launches"] != (r["triage_calls"] if card else 0):
+            raise AssertionError(f"{r['k1_launches']} K1 launches for "
+                                 f"{r['triage_calls']} triage calls on {r['device']}")
+    keys = ("start_s", "drain_s", "events_per_s", "join_s", "first_join_s",
+            "triage_calls", "k1_launches")
+    emit(phase="shards", triggers=100, events=200_000, partitions=8, shards=4,
+         fires=runs[0]["fires"], backend=runs[0]["device"],
+         start_method={r["device"]: r["start_method"] for r in runs},
+         **{f"{k}_{dev}": [r[k] for r in runs if r["device"].startswith(dev)]
+            for k in keys for dev in ("cuda", "cpu")})
+    return [r["k1_launches"] for r in runs if r["device"].startswith("cuda")]
+
+
+def _wait(cond, timeout, what, state=None):
+    """Poll ``cond`` until it holds; past ``timeout`` raise, with ``state()``
+    where given."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout} s: {what}"
+                                 + (f" ({state()})" if state else ""))
+        time.sleep(0.01)
+
+
+def _scale(device, root, counts, subjects=8, burst=1600, grace=5.0):
+    """tests/test_autoscale.py's Fig. 8 lifecycle on a ProcessShardPool under
+    KedaAutoscaler: burst, scale up, drain to zero shard processes, a second
+    burst, scale from zero.  Each trigger is a join of its subject's share of
+    a burst (reset on fire), whose fire stamps the clock.
+
+    The grace period is 5 s, not the test's 0.4 s: a shard's idle clock runs
+    from its start until its first assignment, which comes once every shard
+    of the scale-up is ready, and on the card a shard may be ready seconds
+    after its sibling (a spawned one imports torch first), so at 0.4 s the
+    first one ready can leave before the rebalance."""
+    from repro_torch.bus import ProcessShardPool
+    from repro_torch.core import KedaAutoscaler, Triggerflow, make_trigger, termination_event
+
+    pool = ProcessShardPool(str(root), num_partitions=4, batch_size=128, fsync=False,
+                            device=device, child_init=counts)
+    counts.want = _want_backend(pool)
+    pool.create_workflow("w")
+    for i in range(subjects):
+        pool.add_trigger("w", make_trigger(
+            f"s{i}", condition={"name": "counter", "expected": burst // subjects,
+                                "aggregate": False, "reset_on_fire": True},
+            action={"name": "stamp_first_fire"}, trigger_id=f"t{i}", transient=False))
+    tf = Triggerflow(pool=pool, device=device)
+    scaler = KedaAutoscaler(tf, poll_interval=0.05, grace_period=grace,
+                            events_per_shard=400, max_shards_per_workflow=2)
+
+    def publish(base):
+        pool.publish_batch("w", [termination_event(f"s{i % subjects}", base + i)
+                                 for i in range(burst)])
+
+    def state():
+        return (f"scale_ups {scaler.scale_ups}, scale_downs {scaler.scale_downs}, "
+                f"restarts {scaler.restarts}, lag {pool.lag('w')}, timeline "
+                f"{[(round(t, 2), n, lag) for t, n, lag in scaler.timeline if n or lag][:40]}")
+
+    # the first burst lands before the autoscaler's first tick, which then
+    # sees all of it (a tick in the middle of the publish would see one
+    # partition's share and start one shard, which drains the rest)
+    publish(0)
+    scaler.start()
+    try:
+        _wait(lambda: pool.lag("w") == 0, 120, "the first burst did not drain", state)
+        _wait(lambda: scaler.scale_ups >= 2, 30, "no scale-up to 2 shards", state)
+        ups = scaler.scale_ups
+        _wait(lambda: scaler.active_workers == 0, 60, "no scale to zero", state)
+        counts.reset()
+        t_pub = time.time()
+        publish(burst)
+        _wait(counts.first_fire, 120, "no fire after the second burst",
+              state)
+        cold_fire_s = counts.first_fire() - t_pub
+        cold_join_s = counts.first_call() - t_pub if counts.first_call() else None
+        _wait(lambda: pool.lag("w") == 0, 120, "the second burst did not drain", state)
+        _wait(lambda: scaler.scale_ups > ups, 30, "no scale from zero", state)
+        _wait(lambda: scaler.active_workers == 0, 60, "no scale to zero after burst 2",
+              state)
+        _wait(lambda: not pool.shard_ids("w"), 30, "reaped shards not dropped", state)
+        ids = [e.id for e in pool.event_store.committed_events("w")]
+        out = {"device": str(pool.device), "second_publish_to_first_fire_s": cold_fire_s,
+               "second_publish_to_first_join_s": cold_join_s,
+               "scale_ups": scaler.scale_ups, "scale_downs": scaler.scale_downs,
+               "restarts": scaler.restarts,
+               "peak_shards": max(w for _, w, _ in scaler.timeline),
+               "fires": pool.total_fires("w"), "committed": len(ids),
+               "unique": len(set(ids)), **counts.read()}
+    finally:
+        scaler.stop()
+        tf.shutdown()
+        pool.stop_all()
+    return out
+
+
+def phase_scale(tmp):
+    """Scale-from-zero on the card and on the CPU, in turns (card, CPU, CPU,
+    card): the time from the second burst's publish to its first fire is the
+    cold start a shard process adds, its CUDA context included on the card
+    (its first K1 call creates it)."""
+    counts = ShardJoinCounts()
+    runs = [_scale(device, tmp / f"scale{i}", counts)
+            for i, device in enumerate(("cuda", "cpu", "cpu", "cuda"))]
+    for r in runs:
+        if r["committed"] != r["unique"] or r["committed"] != 3200 or r["fires"] != 16 \
+                or r["restarts"] or r["wrong_backend"]:
+            raise AssertionError(f"scale run on {r['device']}: {r}")
+    emit(phase="scale", bursts=[1600, 1600], **{
+        f"{k}_{dev}": [r[k] for r in runs if r["device"].startswith(dev)]
+        for k in ("second_publish_to_first_fire_s", "second_publish_to_first_join_s",
+                  "peak_shards", "scale_ups",
+                  "scale_downs", "triage_calls", "k1_launches")
+        for dev in ("cuda", "cpu")})
+
+
+def _chaos_join(device, root, counts, seed=3, n_triggers=100, events_each=400,
+                kills=2):
+    """The Table-1 join's shape on 2 shard processes with seeded SIGKILLs and
+    a torn segment tail after the first kill.  A plain counter is
+    at-least-once: no event may be lost or committed twice, and each count
+    reaches its events (a batch redelivered after a kill between its
+    checkpoint and its commit counts again)."""
+    from repro_torch.bus import ProcessShardPool
+    from repro_torch.chaos import tear_segment_tail
+    from repro_torch.chaos.soak import _u
+    from repro_torch.core import termination_event
+
+    n = n_triggers * events_each
+    pool = ProcessShardPool(
+        str(root), num_partitions=8, device=device, child_init=counts,
+        breaker={"backoff_base": 0.02, "backoff_max": 0.1, "cooldown": 0.05})
+    try:
+        counts.want = _want_backend(pool)
+        pool.create_workflow("join")
+        for trg in _join_triggers(n_triggers, events_each):
+            pool.add_trigger("join", trg)
+        pool.publish_batch("join", [termination_event(f"j{i % n_triggers}", i)
+                                    for i in range(n)])
+        counts.reset()
+        pool.start_shards("join", 2)
+        for k in range(kills):
+            u = _u(seed, "kill", k)
+            target = int(n * (0.15 + 0.6 * u) * (k + 1) / kills)
+            _wait(lambda: sum(pool.event_store.commit_offsets("join")) >= target
+                  or not pool.lag("join"), 120, f"kill point {k}")
+            members = pool.shard_ids("join")
+            if members:
+                pool.crash_shard("join", members[int(u * len(members)) % len(members)])
+            if k == 0:
+                tear_segment_tail(pool.bus_root, suffix=".log")
+            pool.start_shards("join", 2)
+        pool.wait_drained("join", timeout=300)
+        ids = [e.id for e in pool.event_store.committed_events("join")]
+        cnt = [pool.trigger_context("join", f"jt{t}").get("count", 0)
+               for t in range(n_triggers)]
+        out = {"events": n, "committed": len(ids), "unique": len(set(ids)),
+               "lag": pool.lag("join"), "min_count": min(cnt), "max_count": max(cnt),
+               "crashes": pool.metrics("join")["crashes"]}
+    finally:
+        pool.stop_all()
+    return dict(out, **counts.read())
+
+
+def phase_chaos(tmp):
+    """run_soak_proc on the card (seeded SIGKILLs, a torn tail; its
+    invariants are asserted inside), then the Table-1 join's shape under the
+    same chaos on the card, where K1 runs in every shard."""
+    import torch
+
+    from repro_torch.chaos import soak
+
+    dev = f"cuda:{torch.cuda.current_device()}"
+    # the soak hands its shards the child_init it finds under this name
+    counts, soak_init = ShardJoinCounts(soak=True), soak.soak_child_init
+    counts.want = dev
+    soak.soak_child_init = counts
+    try:
+        counts.reset()
+        s = soak.run_soak_proc(str(tmp / "soak"), seed=3, device=dev)
+        soak_counts = counts.read()
+    finally:
+        soak.soak_child_init = soak_init
+    if s["crashes"] < 1 or s["lag"] or not soak_counts["planes"] \
+            or soak_counts["wrong_backend"]:
+        raise AssertionError(f"the soak on the card: {s['crashes']} crashes, lag "
+                             f"{s['lag']}, {soak_counts}")
+    counts = ShardJoinCounts()
+    j = _chaos_join(dev, tmp / "chaos_join", counts)
+    if j["lag"] or j["committed"] != j["events"] or j["unique"] != j["events"] \
+            or j["min_count"] < 400 or j["crashes"] < 1 or j["wrong_backend"]:
+        raise AssertionError(f"the join under SIGKILLs on the card: {j}")
+    if not j["k1_launches"] or j["k1_launches"] != j["triage_calls"]:
+        raise AssertionError(f"{j['k1_launches']} K1 launches for {j['triage_calls']} "
+                             f"triage calls in the join under SIGKILLs")
+    emit(phase="chaos", soak={"crashes": s["crashes"], "done_subjects": len(s["done"]),
+                              "dlq_by_reason": s["dlq_by_reason"], **soak_counts},
+         soak_note="the soak's triggers are `true` conditions, which the vector "
+                   "join plane never claims: no K1 call in its shards",
+         join=j)
+    return j["k1_launches"]
+
+
+def _orchestrators(device):
+    """One run of each orchestrator on Triggerflow(device=...), the
+    in-process facade; the outcomes only."""
+    from repro_torch.core import Triggerflow
+    from repro_torch.core.dag import DAG, MapOperator, PythonOperator
+    from repro_torch.core.fedlearn import FederatedLearningOrchestrator, ObjectStore
+    from repro_torch.core.statemachine import StateMachine
+    from repro_torch.core.workflow_as_code import WorkflowAsCode
+
+    def outcome(res):
+        return {k: res.get(k) for k in ("status", "result", "error")}
+
+    out = {}
+    tf = Triggerflow(inline_functions=True, device=device)
+    dag = DAG("diamond")
+    a = dag.add(PythonOperator("a", lambda x: 1))
+    b = dag.add(PythonOperator("b", lambda x: x + 10))
+    c = dag.add(PythonOperator("c", lambda x: x + 100))
+    d = dag.add(PythonOperator("d", lambda xs: sorted(xs)))
+    a >> [b, c]
+    b >> d
+    c >> d
+    dag.deploy(tf, "diamond")
+    out["dag_diamond"] = outcome(dag.run(tf, "diamond", timeout=30))
+    dag = DAG("mj")
+    g = dag.add(PythonOperator("g", lambda x: list(range(7))))
+    m = dag.add(MapOperator("m", lambda x: x + 1))
+    r = dag.add(PythonOperator("r", sum))
+    g >> m >> r
+    dag.deploy(tf, "mj")
+    out["dag_map_join"] = outcome(dag.run(tf, "mj", timeout=30))
+    tf.backend.register("inc", lambda x: (x or 0) + 1)
+    tf.backend.register("dbl", lambda x: (x or 0) * 2)
+    tf.backend.register("flatten", lambda xs: [v for sub in xs for v in sub])
+    sm = StateMachine({
+        "StartAt": "Init",
+        "States": {
+            "Init": {"Type": "Pass", "Result": 0, "Next": "Inc"},
+            "Inc": {"Type": "Task", "Resource": "inc", "Next": "Gate"},
+            "Gate": {"Type": "Choice",
+                     "Choices": [{"Variable": "$.result", "Op": "lt", "Value": 4,
+                                  "Next": "Inc"}],
+                     "Default": "Par"},
+            "Par": {"Type": "Parallel", "Next": "Flat", "Branches": [
+                {"StartAt": "X", "States": {"X": {"Type": "Pass", "Result": [1, 2],
+                                                  "End": True}}},
+                {"StartAt": "Y", "States": {"Y": {"Type": "Pass", "Result": [3],
+                                                  "End": True}}}]},
+            "Flat": {"Type": "Task", "Resource": "flatten", "Next": "Map"},
+            "Map": {"Type": "Map", "Next": "Done", "Iterator": {
+                "StartAt": "D", "States": {"D": {"Type": "Task", "Resource": "dbl",
+                                                 "End": True}}}},
+            "Done": {"Type": "Succeed"},
+        }})
+    sm.deploy(tf, "asl")
+    res = outcome(sm.run(tf, "asl", timeout=30))
+    out["asl_choice_parallel_map"] = dict(res, result=sorted(res["result"] or []))
+    tf.backend.register("add", lambda x: x + 1)
+    tf.backend.register("sq", lambda x: x * x)
+
+    def orch(ex):
+        a = ex.call_async("add", 1).result()
+        return sum(ex.map("sq", [a, a + 1]).result())
+
+    wac = WorkflowAsCode(tf, "wac", orch)
+    wac.deploy()
+    out["wac_suspend_replay"] = dict(outcome(wac.run(timeout=30)), replays=wac.replays)
+    tf.shutdown()
+
+    tf = Triggerflow(device=device)  # threaded: clients run concurrently
+    store = ObjectStore()
+
+    def client(args):
+        if args["round"] == 1 and args["client"] < 3:
+            raise RuntimeError("down")
+        k = store.put(f"d/{args['round']}/{args['client']}", store.get(args["model"]) + 1.0)
+        return {"round": args["round"], "result": k}
+
+    def agg(keys, st):
+        return sum(st.get(k) for k in keys) / len(keys)
+
+    fl = FederatedLearningOrchestrator(tf, "fl", client, agg, n_clients=6, rounds=2,
+                                       threshold=0.5, round_timeout=2.0,
+                                       object_store=store)
+    fl.deploy()
+    try:
+        res = fl.start(init_model=0.0, timeout=60)
+    finally:
+        tf.shutdown()
+    out["fedlearn"] = {"status": res["status"], "model": store.get(res["result"]["model"])}
+    return out
+
+
+def phase_orchestrators():
+    """The four orchestrators on the card's facade against the CPU's; they
+    keep their event log, so their workers run no vector join."""
+    card, cpu = _orchestrators("cuda"), _orchestrators("cpu")
+    want = {"dag_diamond": [11, 101], "dag_map_join": 28,
+            "asl_choice_parallel_map": [2, 4, 6], "wac_suspend_replay": 13}
+    for name, res in want.items():
+        if card[name]["status"] != "succeeded" or card[name]["result"] != res:
+            raise AssertionError(f"{name} on the card: {card[name]}")
+    if card["fedlearn"] != {"status": "succeeded", "model": 2.0}:
+        raise AssertionError(f"fedlearn on the card: {card['fedlearn']}")
+    if card != cpu:
+        raise AssertionError(f"the orchestrators on the card {card} differ from the "
+                             f"CPU's {cpu}")
+    emit(phase="orchestrators", results=card, equal_to_cpu=True,
+         note="the facade's workers keep their event log: no vector join, no K1")
+
+
 def main() -> int:
     try:
         import torch
@@ -957,11 +1466,18 @@ def main() -> int:
     k1_launches = phase_join()
     k2_launches = phase_serving()
     hybrid = phase_hybrid()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
+        k1_shard_launches = phase_shards(Path(tmp))
+        phase_scale(Path(tmp))
+        k1_chaos_launches = phase_chaos(Path(tmp))
+    phase_orchestrators()
     emit(phase="total", seconds=time.perf_counter() - t_start)
     kernels = [
         {"name": "event_join", "route": "cuda", "source": "src/repro_torch/csrc/event_join.cu",
          "replaces": "src/repro/kernels/event_join/event_join.py:51",
-         "launches": k1_launches, **k1},
+         "launches": k1_launches, "launches_shard_path": k1_shard_launches,
+         "launches_chaos_join": k1_chaos_launches, **k1},
         {"name": "flash_attention_sm90", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
@@ -983,7 +1499,9 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the main path: {idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
+    extra = ("launches_shard_path", "launches_chaos_join")
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
+                                  for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

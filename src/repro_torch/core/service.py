@@ -44,8 +44,9 @@ class Triggerflow:
             event_store = event_store or pool.event_store
             state_store = state_store or pool.state_store
         if event_store is None and (num_partitions is not None or num_shards > 1):
-            raise NotImplementedError(
-                "the sharded bus is not ported yet (ROADMAP.md, open item 1.3)")
+            from ..bus import PartitionedEventStore
+
+            event_store = PartitionedEventStore(num_partitions or max(2 * num_shards, 8))
         self.event_store = event_store or MemoryEventStore()
         self.state_store = state_store or MemoryStateStore()
         self.backend = backend or FunctionBackend(self.event_store, inline=inline_functions)
@@ -58,8 +59,16 @@ class Triggerflow:
         # Sharded runtime rides on any partition-capable store (repro.bus).
         self.pool = pool
         if pool is None and hasattr(self.event_store, "consume_partitions"):
-            raise NotImplementedError(
-                "the sharded bus is not ported yet (ROADMAP.md, open item 1.3)")
+            from ..bus import ShardedWorkerPool
+
+            self.pool = ShardedWorkerPool(
+                self.event_store,
+                self.state_store,
+                self.backend,
+                timers=self.timers,
+                commit_policy=self.commit_policy,
+                device=self.device,
+            )
 
     # -- Fig. 1 API -----------------------------------------------------------
     def create_workflow(self, workflow: str, meta: Optional[Dict[str, Any]] = None) -> None:

@@ -59,6 +59,7 @@ from .conditions import BATCHED_CONDITIONS, CONDITIONS, FIRE_RUN_CONDITIONS
 from .context import TriggerContext
 from .device import resolve_device
 from .events import CloudEvent
+from ..kernels.event_join.dispatch import JoinBackendError
 from ..obs.trace import inject as _trace_inject
 from .eventstore import EventStore
 from .functions import FunctionBackend
@@ -973,6 +974,10 @@ class TFWorker:
                 t_join = time.perf_counter() if m is not None else 0.0
                 try:
                     res = vector_plane.triage(batch, self._entries_for, stats)
+                except JoinBackendError:
+                    # the join itself failed: the batch fails with it, and
+                    # no other path takes it over
+                    raise
                 except Exception:  # noqa: BLE001
                     # e.g. a non-numeric ctx["expected"] set via introspection:
                     # screening raises before any context is mutated, so the

@@ -18,6 +18,11 @@ ids, −1 = padding; ``counts`` and ``expected`` one entry per row), numpy
 ``auto`` and bare ``cuda`` are not backends here: the worker resolves both
 from its own device (``core/worker.py``).  ``jax``, ``pallas`` and ``numpy``
 are the reference's backends and raise.
+
+A join that fails, in any backend, raises ``JoinBackendError`` out of
+``join_counts_segments``, and the worker lets it out of ``run_once``: the
+batch fails, as any failed batch does (a shard process dies and the pool
+records a crash); the Python path never takes it over.
 """
 from __future__ import annotations
 
@@ -29,6 +34,11 @@ import torch
 
 JoinFn = Callable[[np.ndarray, np.ndarray, np.ndarray],
                   Tuple[np.ndarray, np.ndarray]]
+
+
+class JoinBackendError(RuntimeError):
+    """A join backend failed: its build, its launch, its synchronisation or
+    its plain version.  The cause is chained (``__cause__``)."""
 
 
 def _torch_join(events: np.ndarray, counts: np.ndarray,
@@ -179,5 +189,8 @@ def join_counts_segments(lens, counts: np.ndarray, expected: np.ndarray,
     to trigger row ``i``.  This is the shape the columnar ingest path
     produces, so the row-id expansion lives here next to the kernel instead
     of in every caller."""
-    event_rows = np.repeat(np.arange(len(lens), dtype=np.int32), lens)
-    return fn(event_rows, counts, expected)
+    try:
+        event_rows = np.repeat(np.arange(len(lens), dtype=np.int32), lens)
+        return fn(event_rows, counts, expected)
+    except Exception as exc:
+        raise JoinBackendError(f"the event join failed in its backend: {exc!r}") from exc

@@ -5,6 +5,11 @@
   backend and the reference's worker on ``numpy``: same fires, same
   contexts.
 * The triage parity case of tests/test_batch_plane.py on the port.
+* A join that fails in its backend raises out of ``run_once``; a screening
+  error (a non-numeric ``expected``) still takes the exact path, as in the
+  reference.
+* ``Triggerflow(num_shards=2)`` and ``Triggerflow(num_partitions=4)`` drain
+  a small join on the CPU.
 * Guards for the copy: the port imports neither jax nor ``repro``; each
   copied module equals its reference source but for the hunks listed in
   ``EDITS``; tfcheck passes over the copy.
@@ -125,10 +130,88 @@ def test_device_argument_and_no_fallback(monkeypatch):
         TFWorker("w", MemoryEventStore(), MemoryStateStore(),
                  FunctionBackend(MemoryEventStore(), inline=True), device="cuda",
                  vector_join="auto")
-    with pytest.raises(NotImplementedError, match="sharded bus"):
-        Triggerflow(device="cpu", num_shards=2)
-    with pytest.raises(NotImplementedError, match="sharded bus"):
-        Triggerflow(device="cpu", num_partitions=4)
+    # the sharded bus: both ways of asking for it drain a small join
+    for kw, shards in (({"num_shards": 2}, 2), ({"num_partitions": 4}, 1)):
+        tf = Triggerflow(device="cpu", inline_functions=True,
+                         commit_policy="every_batch", **kw)
+        assert tf.pool.device == torch.device("cpu")
+        tf.create_workflow("w")
+        tf.pool.set_shard_count("w", shards)
+        for t in range(4):
+            tf.add_trigger("w", make_trigger(
+                f"j{t}", condition={"name": "counter", "expected": 20,
+                                    "aggregate": False},
+                action={"name": "noop"}, trigger_id=f"jt{t}", transient=False))
+        tf.event_store.publish_batch("w", [termination_event(f"j{i % 4}", i)
+                                           for i in range(80)])
+        tf.pool.drive("w", timeout=20)
+        assert tf.pool.total_fires("w") == 4
+        assert tf.event_store.lag("w") == 0
+        assert tf.worker("w").device == torch.device("cpu")
+        tf.shutdown()
+
+
+# ------------------------------------------- a join-backend failure raises ----
+def _join_triggers(w, make, poison=False):
+    for i in range(3):
+        w.add_trigger(make(f"s{i}", condition={"name": "counter", "expected": 50,
+                                               "aggregate": False},
+                           action={"name": "noop"}, trigger_id=f"t{i}", transient=False))
+    if poison:  # introspection writing a non-numeric expected
+        w.context_of("t0")["expected"] = "not-a-number"
+
+
+def test_join_backend_failure_raises_out_of_run_once(monkeypatch):
+    """A join that fails in its backend fails the batch: ``run_once``
+    raises, and the Python path does not take the batch over (no count
+    moves, nothing commits)."""
+    from repro_torch.kernels.event_join import ops
+    from repro_torch.kernels.event_join.dispatch import JoinBackendError
+
+    es = MemoryEventStore()
+    w = TFWorker("w", es, MemoryStateStore(), FunctionBackend(es, inline=True),
+                 commit_policy="every_batch", vector_join="torch", device="cpu")
+    w.keep_event_log = False
+    _join_triggers(w, make_trigger)
+    es.publish_batch("w", [termination_event(f"s{i % 3}", i) for i in range(9)])
+
+    def broken(*args):
+        raise RuntimeError("injected join failure")
+
+    monkeypatch.setattr(ops, "event_join", broken)
+    with pytest.raises(JoinBackendError) as info:
+        w.run_once(256)
+    assert isinstance(info.value.__cause__, RuntimeError)
+    assert w._vector_plane.calls == 0
+    assert w.stats.activations == w.stats.fires == 0
+    assert all(w.context_of(f"t{i}").get("count", 0) == 0 for i in range(3))
+    assert es.lag("w") == 9
+
+
+def test_screening_error_still_takes_the_exact_path():
+    """The fallback the reference keeps, for what its comment names: a
+    non-numeric ctx["expected"] raises in screening, before any context is
+    mutated, and the exact path takes the batch; the port gives the
+    reference's observables."""
+    obs = []
+    for store_cls, state_cls, backend_cls, worker_cls, make, term, vj, kw in (
+            (MemoryEventStore, MemoryStateStore, FunctionBackend, TFWorker,
+             make_trigger, termination_event, "torch", {"device": "cpu"}),
+            (RefMemoryEventStore, RefMemoryStateStore, RefFunctionBackend,
+             RefTFWorker, ref_make_trigger, ref_termination_event, "numpy", {})):
+        es = store_cls()
+        w = worker_cls("w", es, state_cls(), backend_cls(es, inline=True),
+                       commit_policy="every_batch", vector_join=vj, **kw)
+        w.keep_event_log = False
+        _join_triggers(w, make, poison=True)
+        es.publish_batch("w", [term(f"s{i % 3}", i) for i in range(9)])
+        for _ in range(50):
+            if w.run_once(256) == 0 and not w._sink:
+                break
+        obs.append(_observables(w))
+    assert obs[0] == obs[1]
+    assert obs[0]["lag"] == 0
+    assert obs[0]["contexts"]["t1"]["count"] == 3
 
 
 @pytest.mark.parametrize("vector_join", [None, "auto", "cuda", "cuda:1"])
@@ -191,7 +274,7 @@ def test_port_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", _HOOK], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30
+    assert int(out.stdout.split()[-1]) >= 65
 
 
 def _imports(path):
@@ -216,6 +299,8 @@ def test_no_jax_or_repro_import_in_port_sources():
 EDITS = {
     "core/worker.py": [
         ("device argument", [], ["from .device import resolve_device"]),
+        ("a join-backend failure raises", [], [
+            "from ..kernels.event_join.dispatch import JoinBackendError"]),
         ("device argument", [], ['device="cuda",']),
         ("device argument", [], ["self.device = resolve_device(device)"]),
         ("auto and bare cuda follow the worker's device", [], [
@@ -236,6 +321,11 @@ EDITS = {
             "raise",
             "self._vector_plane = None  # auto: numpy missing, plane off"], [
             "self._vector_plane = VectorJoinPlane(backend=mode)"]),
+        ("a join-backend failure raises", [], [
+            "except JoinBackendError:",
+            "# the join itself failed: the batch fails with it, and",
+            "# no other path takes it over",
+            "raise"]),
     ],
     "core/service.py": [
         ("device argument", [], ["from .device import resolve_device"]),
@@ -245,25 +335,81 @@ EDITS = {
             "# placement): the worker's join backend and the serving engine take",
             "# it from here.  A CUDA device without CUDA raises; nothing falls back.",
             "self.device = resolve_device(device)"]),
-        ("sharding raises NotImplementedError", [
-            "from ..bus import PartitionedEventStore", "",
-            "event_store = PartitionedEventStore(num_partitions or max(2 * num_shards, 8))"], [
-            "raise NotImplementedError(",
-            '"the sharded bus is not ported yet (ROADMAP.md, open item 1.3)")']),
-        ("sharding raises NotImplementedError", [
-            "from ..bus import ShardedWorkerPool", "",
-            "self.pool = ShardedWorkerPool(", "self.event_store,",
-            "self.state_store,", "self.backend,", "timers=self.timers,",
-            "commit_policy=self.commit_policy,", ")"], [
-            "raise NotImplementedError(",
-            '"the sharded bus is not ported yet (ROADMAP.md, open item 1.3)")']),
+        ("device argument: the threaded pool's shards", [], ["device=self.device,"]),
         ("device argument", [], ["device=self.device,"]),
+    ],
+    "bus/pool.py": [
+        ("device argument", [], ["from ..core.device import resolve_device"]),
+        ("device argument", [], ['device="cuda",']),
+        ("device argument", [], [
+            "# every shard's worker, and so its join backend, on this one device",
+            "self.device = resolve_device(device)"]),
+        ("device argument", [], ["device=self.device,"]),
+    ],
+    "bus/proc.py": [
+        ("the start method on a CUDA device", [
+            "Start method: ``fork`` where available (fast; inherits registered",
+            "conditions/actions/pyfuncs), else ``spawn`` (``child_init`` and any custom",
+            "registrations must then be importable/picklable).  Event-id uniqueness",
+            "across forked processes is guaranteed by the per-process id prefix in",
+            "``repro.core.events``."], [
+            "Start method: on the CPU, ``fork`` where available (fast; inherits",
+            "registered conditions/actions/pyfuncs), else ``spawn``.  On a CUDA device,",
+            "``forkserver``, its server preloading ``torch`` and this module: a CUDA",
+            "context does not survive a fork, and the server never starts one, so every",
+            "shard makes its own, and a shard forks from the server in well under a",
+            "second where a spawned one first imports torch.  An explicit ``fork``",
+            "raises there once the parent has initialised CUDA.  Under ``spawn`` and",
+            "``forkserver`` ``child_init`` and any custom registrations must be",
+            "importable/picklable.  Every shard runs on the pool's device, named with",
+            "its index (``cuda:0``), whatever the child's current device.  Event-id",
+            "uniqueness across forked processes is guaranteed by the per-process id",
+            "prefix in ``repro.core.events``."]),
+        ("device argument", [], ["import torch", "", "from ..core.device import resolve_device"]),
+        ("device argument: the child's worker", [], ['device=cfg["device"],']),
+        ("device argument", [], ['device="cuda",']),
+        ("device argument and the start method on a CUDA device", [], [
+            "# one device for every shard, fixed here with its index, and a start",
+            "# method that gives each shard on a card a fresh CUDA context",
+            "self.device = resolve_device(device)",
+            'on_cuda = self.device.type == "cuda"',
+            "if start_method is None and on_cuda:",
+            'start_method = "forkserver"',
+            'mp.get_context(start_method).set_forkserver_preload(["torch", __name__])',
+            'elif start_method == "fork" and on_cuda and torch.cuda.is_initialized():',
+            "raise ValueError(",
+            "\"start_method='fork' on %s: CUDA is initialised in this process \"",
+            "\"and a forked shard cannot use it; use 'spawn' or 'forkserver'\"",
+            "% self.device)"]),
+        ("device argument: handed to the child with its index", [],
+         ['"device": str(self.device),']),
+    ],
+    "chaos/soak.py": [
+        ("device argument", ["tracer=None) -> Dict[str, Any]:"],
+         ['tracer=None, device="cuda") -> Dict[str, Any]:']),
+        ("device argument", ["keep_event_log=False, tracer=tracer)"],
+         ["keep_event_log=False, tracer=tracer, device=device)"]),
+        ("device argument", ["fsync: bool = True) -> Dict[str, Any]:"],
+         ['fsync: bool = True, device="cuda") -> Dict[str, Any]:']),
+        ("device argument", ["child_init=soak_child_init,"],
+         ["child_init=soak_child_init, device=device,"]),
+        ("device argument", ["timeout: float = 60.0) -> Dict[str, Any]:"],
+         ['timeout: float = 60.0, device="cuda") -> Dict[str, Any]:']),
+        ("device argument", ["keep_event_log=False)"],
+         ["keep_event_log=False, device=device)"]),
+        ("device argument", ["fsync: bool = False) -> Dict[str, Any]:"],
+         ['fsync: bool = False, device="cuda") -> Dict[str, Any]:']),
+        ("device argument", ["child_init=soak_child_init, replicate=True, lease=True,"],
+         ["child_init=soak_child_init, replicate=True, lease=True, device=device,"]),
     ],
 }
 COPIED = ([f"core/{m}.py" for m in (
     "codec", "events", "triggers", "policy", "conditions", "context", "actions",
     "eventstore", "statestore", "functions", "batch", "worker", "service",
-    "autoscaler", "__init__")]
+    "autoscaler", "dag", "statemachine", "workflow_as_code", "fedlearn", "__init__")]
+    + [f"bus/{m}.py" for m in ("group", "replicate", "partitioned", "pool", "proc",
+                               "__init__")]
+    + [f"chaos/{m}.py" for m in ("faults", "soak", "__init__")]
     + [f"obs/{m}.py" for m in ("trace", "metrics", "__init__")]
     + [f"configs/{p.name}" for p in sorted((SRC / "repro" / "configs").glob("*.py"))])
 _IMPORT = re.compile(r"^(\s*)(from|import)\s+repro\.")
@@ -282,7 +428,8 @@ def test_copied_module_has_not_drifted(module):
 
 
 def test_tfcheck_passes_over_the_copy():
-    out = subprocess.run([sys.executable, "scripts/tfcheck.py", "src/repro_torch/core"],
+    out = subprocess.run([sys.executable, "scripts/tfcheck.py", "src/repro_torch/core",
+                          "src/repro_torch/bus", "src/repro_torch/chaos"],
                          cwd=REPO, env=dict(os.environ, PYTHONPATH=str(SRC)),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
