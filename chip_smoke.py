@@ -93,12 +93,17 @@ launch it (phases 5, 6 and 7, and the fp32 forwards of 7 for the scalar
 kernels of K2 and K3; in phases 8-10, K1's count in the shard processes)
 and read just after.  Earlier lines print JSON
 results, the card's name and power limit and a "kernels" line; the last line
-is {"ok": true, "device": {...}}.  Without CUDA, or away from the repo, it
+is {"ok": true, "device": {...}}.  Those last lines come only once every
+process the phases started has ended (``stop_children``: shards a failed
+phase left, multiprocessing's forkserver and resource tracker); one that
+will not end fails the script.  Without CUDA, or away from the repo, it
 exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import json
+import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -955,6 +960,92 @@ def phase_hybrid():
             "k2_scalar": fp32_launches["launches_scalar"]}
 
 
+# ------------------------------------------------------ child processes ----
+def adopt_orphans() -> None:
+    """Make this process the reaper of its descendants (Linux): a shard whose
+    forkserver has ended is handed to this script, not to init, so that
+    ``stop_children`` still finds it."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)  # PR_SET_CHILD_SUBREAPER
+    except (OSError, AttributeError):
+        pass
+
+
+def _descendants() -> set:
+    parent = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    parent[int(entry)] = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                pass
+    found, todo = set(), [os.getpid()]
+    while todo:
+        pid = todo.pop()
+        kids = [c for c, p in parent.items() if p == pid and c not in found]
+        found.update(kids)
+        todo.extend(kids)
+    return found
+
+
+def _reap() -> None:
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if not pid:
+            return
+
+
+def stop_children(timeout: float = 30.0) -> set:
+    """Stop every process the phases started and wait until each has ended:
+    shard processes a failed phase left behind, then multiprocessing's
+    forkserver and resource tracker, which would otherwise outlive the script
+    by the time they take to notice that it has ended.  Returns the pids that
+    are still there after ``timeout``."""
+    import gc
+    import multiprocessing as mp
+    from multiprocessing import forkserver, resource_tracker
+
+    gc.collect()  # the shard counters' semaphores unregister now, not at exit
+    for proc in mp.active_children():
+        proc.kill()
+        proc.join(10)
+    server, tracker = forkserver._forkserver, resource_tracker._resource_tracker
+    helpers = {getattr(server, "_forkserver_pid", None), getattr(tracker, "_pid", None)}
+    for pid in _descendants() - helpers:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    deadline = time.monotonic() + timeout / 2
+    while _descendants() - helpers and time.monotonic() < deadline:
+        _reap()
+        time.sleep(0.05)
+    # both end once the last write end of their pipe closes; _stop closes
+    # this process's end and waits for the pid
+    server._stop()
+    if hasattr(tracker, "_stop"):
+        tracker._stop()
+    deadline = time.monotonic() + timeout / 2
+    while True:
+        _reap()
+        left = _descendants()
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    return left
+
+
 # ------------------------------------------------ process shards (8-10) ----
 class ShardJoinCounts:
     """``child_init`` for the port's process shards, handed to each shard
@@ -1452,6 +1543,22 @@ def main() -> int:
               "from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    adopt_orphans()
+    try:
+        lines = run_phases(torch)
+    finally:
+        left = stop_children()
+    if left:
+        raise AssertionError(f"processes still running after the phases: {sorted(left)}")
+    for line in lines:
+        print(line)
+    return 0
+
+
+def run_phases(torch) -> list:
+    """Phases 1-11; returns the lines that end the output (the kernels line,
+    the card's name and power limit, the result), printed once every process
+    the phases started has ended."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1500,13 +1607,12 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("launches_shard_path", "launches_chaos_join")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
-                                  for kern in kernels]}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                              "kind": torch.cuda.get_device_name(0),
-                                              "count": torch.cuda.device_count()}}))
-    return 0
+    return [json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
+                                    for kern in kernels]}),
+            card,
+            json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                "kind": torch.cuda.get_device_name(0),
+                                                "count": torch.cuda.device_count()}})]
 
 
 if __name__ == "__main__":
