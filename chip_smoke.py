@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero. Each
+model of phases 12-15 prints its depth cut, peak GiB, seconds, prefill ms,
+decode ms a token and the device's busy share:
 
 1. build     compile the CUDA kernels from src/repro_torch/csrc (one nvcc
              per source, all at once);
@@ -86,12 +88,45 @@ Phases, in order; any failure raises and the script exits non-zero:
              with choice, parallel and map, workflow-as-code with
              suspend/replay and one federated-learning run with threshold
              and timeout, on Triggerflow(device="cuda"), equal to a
-             device="cpu" run (they keep their event log: no K1).
+             device="cpu" run (they keep their event log: no K1);
+12. vlm      qwen2-vl-72b at full width, 16 of its 80 layers (the depth that
+             fits the card beside the checks), bf16, seeded random weights:
+             8 requests through ServingEngine under KedaAutoscaler, K2's sm90
+             kernel (64/8 heads, G = 8) on every prefill layer; then a
+             model-level prefill of 4 prompts that each carry 1024 patch
+             embeddings with positions3 a (t, h, w) grid over them, and 16
+             decode steps; on that batch, K2 against the sm90 route's plain
+             version at every layer's own inputs and the logits at every
+             position with K2, with that plain version and with a wrong
+             attention, as in phase 6;
+13. audio    musicgen-large at full width and depth (48 layers) at the model
+             level (the engine takes [B, S] prompts; these are [B, 4, S]
+             codebook grids): 8 seeded prompts of 128-1024 frames, 4 to a
+             batch, prefill and 16 greedy decode steps, K2's sm90 kernel (32
+             heads of 64) on every prefill layer; the checks of phase 12 on
+             the first batch;
+14. moe      phi3.5-moe at full width, 16 of its 32 layers: the 8 requests of
+             phase 6, K2's sm90 kernel (32/8 heads) on every prefill layer;
+             the token-slots the MoE drops past an expert's capacity in a
+             prefill and in each decode step; K2 against its plain version
+             at every layer's own inputs in bf16, as served; the logits at
+             every position with the activations in fp32 (in bf16 one
+             rounding flip in a router sends a token to another expert),
+             with K2 (its scalar route), its plain version and a wrong
+             attention, counting the token-slots whose expert differs
+             between K2 and the plain version;
+15. mla_moe  deepseek-v2 at full width, 4 of its 60 layers (layer 0 dense, 3
+             MoE): the 8 requests, K2's scalar kernel (128 heads, D 192, Dv
+             128) on every prefill layer; the checks of phase 14; the
+             scalar route's share of the prefill's device time; the scalar
+             kernel timed at deepseek-v2's prefill shape (B 4, S 1024) beside
+             its plain version and scaled_dot_product_attention.
 
 Each kernel's launch count is set to 0 just before the path that should
 launch it (phases 5, 6 and 7, and the fp32 forwards of 7 for the scalar
-kernels of K2 and K3; in phases 8-10, K1's count in the shard processes)
-and read just after.  Earlier lines print JSON
+kernels of K2 and K3; in phases 8-10, K1's count in the shard processes;
+each serving run, model-level run and fp32 check of phases 12-15) and read
+just after.  Earlier lines print JSON
 results, the card's name and power limit and a "kernels" line; the last line
 is {"ok": true, "device": {...}}.  Those last lines come only once every
 process the phases started has ended (``stop_children``: shards a failed
@@ -184,19 +219,24 @@ def device_profile(fn, iters: int, top: int = 0, attempts: int = 3) -> dict:
     return out
 
 
-def kernel_times(iters: int, **fns) -> dict:
+def kernel_times(iters: int, bound: float = 0.0, **fns) -> dict:
     """For each of ``ms`` (the kernel), ``plain_ms`` and ``library_ms``: the
     device time per call from the profiler, and beside it (``*event_ms``) the
     CUDA-event time per call of back-to-back calls, which is the host's time
     where the host cannot keep the card busy.  Where no profiling session saw
-    device activity, the value is the CUDA-event time; ``timers`` says which
-    clock gave each value."""
+    device activity, or what it saw takes less than ``bound`` (the least time
+    the card could take: the profiler missed some of the call's kernels),
+    the value is the CUDA-event time; ``timers`` says which clock gave each
+    value."""
     out, timers = {}, {}
     for key, fn in fns.items():
         prof = device_profile(fn, iters)
         event_ms = cuda_ms(fn, iters)
         if prof["device_ms"] is None:
             out[key], timers[key] = event_ms, "cuda_events"
+        elif prof["device_ms"] < bound:
+            out[key] = event_ms
+            timers[key] = f"cuda_events: the profiler saw {prof['device_ms']} ms"
         else:
             out[key], timers[key] = prof["device_ms"], f"profiler/{prof['sessions']}"
         out[key.replace("ms", "event_ms")] = event_ms
@@ -725,12 +765,19 @@ def _serve(cfg, counters):
                batches=eng.batches, new_tokens=16, prompt_lens=[len(p) for p in prompts],
                wall_s=wall, tokens_per_s=8 * 16 / wall, prefill_ms_batch0=prefill_ms,
                decode_ms_per_token=decode_ms, peak_gib=peak_gib, launches=launches,
-               profile=profiles)
+               busy_share=busy_share(profiles), profile=profiles)
     return run, model, tokens
 
 
-def _logits_by_variant(model, tokens, module, name, variants):
-    """The logits at every position of ``tokens`` with ``module.<name>``
+def busy_share(profiles) -> dict:
+    """Device time over host wall time of each profiled step (None where no
+    profiling session saw the device)."""
+    return {k: (p["device_ms"] / p["wall_ms"] if p["device_ms"] is not None else None)
+            for k, p in profiles.items()}
+
+
+def _logits_by_variant(model, batch, module, name, variants):
+    """The logits at every position of ``batch`` with ``module.<name>``
     swapped for each of ``variants`` in turn (monkeypatches of this
     script's, not switches in the package)."""
     real = getattr(module, name)
@@ -738,7 +785,7 @@ def _logits_by_variant(model, tokens, module, name, variants):
     try:
         for key, fn in variants.items():
             setattr(module, name, fn)
-            full[key] = model.forward({"tokens": tokens})[0]
+            full[key] = model.forward(batch)[0]
     finally:
         setattr(module, name, real)
     return full
@@ -816,7 +863,7 @@ def phase_serving():
     def wrong(q, k, v, causal=True):
         return plain(q, k, v, causal=False)
 
-    full = _logits_by_variant(model, tokens, layers, "flash_attention",
+    full = _logits_by_variant(model, {"tokens": tokens}, layers, "flash_attention",
                               {"kernel": checked, "plain": plain, "wrong": wrong})
     if len(layer_excess) != cfg.n_layers or max(x for _, x in layer_excess) > 0:
         raise AssertionError(f"K2 differs from its plain version inside the model: "
@@ -899,7 +946,8 @@ def phase_hybrid():
                                    want))
         return got
 
-    bf16 = _logits_by_variant(model, tokens, ssm, "ssd", {"kernel": checked})["kernel"]
+    bf16 = _logits_by_variant(model, {"tokens": tokens}, ssm, "ssd",
+                              {"kernel": checked})["kernel"]
     if len(layer_excess) != cfg.n_layers or max(x for _, x in layer_excess) > 0:
         raise AssertionError(f"K3 differs from its plain version inside the model: "
                              f"(max |error|, excess) per layer {layer_excess}")
@@ -926,7 +974,7 @@ def phase_hybrid():
         setattr(fa_ops, c, 0)
         setattr(ssd_ops, c, 0)
     try:
-        fp32 = _logits_by_variant(model, tokens, ssm, "ssd", variants)
+        fp32 = _logits_by_variant(model, {"tokens": tokens}, ssm, "ssd", variants)
     finally:
         model.cfg = cfg
     fp32_launches = {c: getattr(fa_ops, c) for c in COUNTERS}
@@ -958,6 +1006,430 @@ def phase_hybrid():
     return {"k3_sm90": launches["k3_sm90"], "k3_scalar": fp32_k3["launches_scalar"],
             "k2_sm90": launches["launches_sm90"],
             "k2_scalar": fp32_launches["launches_scalar"]}
+
+
+# ------------------------------------------ the vlm, audio and MoE families ----
+def _full_width(arch, widths, layers):
+    """``arch``'s full config, held to its published ``widths``, with its
+    depth cut to ``layers`` (the whole model does not fit the card)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    got = {k: getattr(cfg, k) for k in widths}
+    if got != widths:
+        raise AssertionError(f"{arch} is not at full width: {got}, want {widths}")
+    return dataclasses.replace(cfg, n_layers=layers), cfg.n_layers
+
+
+def _drop_models() -> None:
+    """Forget every serving engine (the engine module's registry holds each
+    one, and its model) and hand the card's cached blocks back, so that the
+    next model has the card to itself."""
+    import gc
+
+    import torch
+
+    from repro_torch.serving import engine
+
+    engine._ENGINES.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _zero(counters) -> None:
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def _read(counters) -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+
+def _k2_counters():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return {c: (fa_ops, c) for c in COUNTERS}
+
+
+def _want_k2(n, route):
+    return {"launches": n, "launches_sm90": n if route == "sm90" else 0,
+            "launches_scalar": n if route == "scalar" else 0}
+
+
+def _k2_in_model(model, batch, route, logits_rtol=None):
+    """K2 against its route's plain version inside ``model`` on ``batch``,
+    in bf16 as served: first every layer's own q, k, v at the kernel's
+    tolerance, in the forward with K2; then, with ``logits_rtol``, the
+    logits at every position with K2 against those with that plain version
+    and with a deliberately wrong attention (the plain version without its
+    causal mask), which must fail the same tolerance."""
+    import functools
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    from repro_torch.models import layers
+
+    arch = model.cfg.arch
+    real = layers.flash_attention
+    plain = functools.partial(flash_attention_torch, **fa_ops.PLAIN_ARGS[route])
+    layer_excess = []
+
+    def checked(q, k, v, causal=True):
+        if fa_ops.route(q, k, v) != route:
+            raise AssertionError(f"{arch}: a prefill layer's attention takes the "
+                                 f"{fa_ops.route(q, k, v)} route, not {route}")
+        got = real(q, k, v, causal=causal)
+        layer_excess.append(attn_excess(got, plain(q, k, v, causal=causal)))
+        return got
+
+    def wrong(q, k, v, causal=True):
+        return plain(q, k, v, causal=False)
+
+    variants = {"kernel": checked}
+    if logits_rtol:
+        variants.update(plain=plain, wrong=wrong)
+    full = _logits_by_variant(model, batch, layers, "flash_attention", variants)
+    if len(layer_excess) != model.cfg.n_layers or max(x for _, x in layer_excess) > 0:
+        raise AssertionError(f"{arch}: K2 differs from its plain version inside the model: "
+                             f"(max |error|, excess) per layer {layer_excess}")
+    out = {"layer_max_abs_err": max(e for e, _ in layer_excess),
+           "layer_max_excess": max(x for _, x in layer_excess)}
+    if not logits_rtol:
+        if not torch.isfinite(full["kernel"]).all():
+            raise AssertionError(f"{arch}: bf16 forward logits with K2 are not finite")
+        return out
+    return {**out, **_logits_check(arch, full, "K2", logits_rtol)}
+
+
+def _routed_logits_fp32(model, batch):
+    """The logits at every position with the activations in fp32, three
+    ways: with K2 (its scalar route: fp32), with that route's plain version
+    and with the plain version without its causal mask.  In bf16 one
+    rounding flip in a router can send a token to another expert, which no
+    attention tolerance can absorb; in fp32 rounding is 2**16 times smaller.
+    Every MoE layer's routing is recorded in each forward: the token-slots
+    whose expert differs between the forward with K2 and the plain one are
+    counted.  Only the forward with K2 launches it, once a layer."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    from repro_torch.models import layers, moe
+
+    cfg = model.cfg
+    real_route, real_attn = moe.route, layers.flash_attention
+    picks = {}
+
+    def wrong(q, k, v, causal=True):
+        return flash_attention_torch(q, k, v, causal=False)
+
+    variants = {"kernel": real_attn, "plain": flash_attention_torch, "wrong": wrong}
+    full, seen = {}, []
+
+    def recorded(*args, **kw):
+        r = real_route(*args, **kw)
+        seen.append(r.top_e)
+        return r
+
+    counters = _k2_counters()
+    _zero(counters)
+    model.cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    moe.route = recorded
+    try:
+        for key, fn in variants.items():
+            layers.flash_attention = fn
+            seen = picks[key] = []
+            full[key] = model.forward(batch)[0]
+    finally:
+        moe.route, layers.flash_attention, model.cfg = real_route, real_attn, cfg
+    launches = _read(counters)
+    if launches != _want_k2(cfg.n_layers, "scalar"):
+        raise AssertionError(f"{cfg.arch}: K2 launches {launches} in the fp32 forwards, "
+                             f"want {_want_k2(cfg.n_layers, 'scalar')}")
+    flips = sum(int((a != b).sum()) for a, b in zip(picks["kernel"], picks["plain"]))
+    slots = sum(a.numel() for a in picks["kernel"])
+    # fp32 attention differs from its plain version by summation order, about
+    # 1e-6 of each output, and that reaches the logits through every layer
+    gaps = _logits_check(cfg.arch, full, "K2 (fp32 activations)", 1e-3)
+    return {"fp32_k2_launches": launches, "fp32_expert_flips": flips,
+            "fp32_token_slots": slots, **gaps}
+
+
+def _drops(model, tokens, steps=16):
+    """Token-slots dropped past an expert's capacity, summed over the MoE
+    layers: in a prefill of ``tokens`` and in each of ``steps`` greedy
+    decode steps after it, beside the token-slots routed."""
+    from repro_torch.models import moe
+
+    real = moe.route
+    seen = []
+
+    def recorded(*args, **kw):
+        r = real(*args, **kw)
+        seen.append((r.dropped, r.kept.numel()))
+        return r
+
+    moe.route = recorded
+    try:
+        logits, cache = model.prefill({"tokens": tokens}, max_len=2048)
+        prefill = seen[:]
+        decode = []
+        tok = logits.argmax(-1)[:, None]
+        for _ in range(steps):
+            seen.clear()
+            logits, cache = model.decode(cache, {"tokens": tok})
+            tok = logits.argmax(-1)[:, None]
+            decode.append(seen[:])
+    finally:
+        moe.route = real
+    return {"prefill_dropped": sum(d for d, _ in prefill),
+            "prefill_slots": sum(n for _, n in prefill),
+            "decode_dropped_per_step": [sum(d for d, _ in s) for s in decode],
+            "decode_slots_per_step": sum(n for _, n in decode[0])}
+
+
+def _vlm_batch(cfg, B, text=128):
+    """B prompts that each carry ``cfg.n_patches`` patch embeddings (seeded,
+    bf16, at the token embeddings' scale) between ``text`` text tokens before
+    and after, with positions3 as Qwen2-VL lays an image out: text at
+    (i, i, i); the patches of a side x side grid at (text, text + row, text
+    + col); the text after them from text + side on."""
+    import torch
+
+    P = cfg.n_patches
+    side = int(P ** 0.5)
+    S = 2 * text + P
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tokens = torch.randint(1, cfg.vocab, (B, S), generator=gen, device="cuda")
+    embeds = (torch.randn(B, P, cfg.d_model, generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    pos3 = torch.arange(S, device="cuda")[None, :, None].repeat(B, 1, 3)
+    grid = torch.arange(P, device="cuda")
+    pos3[:, text:text + P] = text + torch.stack(
+        [torch.zeros_like(grid), grid // side, grid % side], -1)
+    pos3[:, text + P:] = text + side + torch.arange(text, device="cuda")[:, None]
+    return {"tokens": tokens, "patch_embeds": embeds,
+            "patch_positions": torch.arange(text, text + P, device="cuda").repeat(B, 1),
+            "positions3": pos3}
+
+
+def _greedy(model, batch, max_len, steps=16):
+    """Prefill plus ``steps`` greedy decode steps → the new tokens."""
+    import torch
+
+    logits, cache = model.prefill(batch, max_len=max_len)
+    tok = logits.argmax(-1)[..., None]
+    outs = []
+    for _ in range(steps):
+        outs.append(tok)
+        logits, cache = model.decode(cache, {"tokens": tok})
+        tok = logits.argmax(-1)[..., None]
+    return torch.cat(outs, -1)
+
+
+def phase_vlm():
+    import torch
+
+    t0 = time.perf_counter()
+    _drop_models()          # phase 7's engine
+    cfg, full = _full_width("qwen2-vl-72b", dict(
+        family="vlm", d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128, d_ff=29568,
+        vocab=152064, mrope_sections=(16, 24, 24), n_patches=1024), 16)
+    counters = _k2_counters()
+    run, model, _ = _serve(cfg, counters)
+    n = cfg.n_layers
+    if run["launches"] != _want_k2(2 * n, "sm90"):
+        raise AssertionError(f"K2 launches {run['launches']} in the qwen2-vl-72b run: every "
+                             f"bf16 prefill layer (64/8 heads, D 128) takes the sm90 route")
+
+    # a model-level prefill of 4 prompts that each carry 1024 patch
+    # embeddings with M-RoPE over their (t, h, w) grid, then decode steps
+    batch = _vlm_batch(cfg, 4)
+    S = batch["tokens"].shape[1]
+    _zero(counters)
+    new = _greedy(model, batch, S + 16)
+    patch_launches = _read(counters)
+    if patch_launches != _want_k2(n, "sm90"):
+        raise AssertionError(f"K2 launches {patch_launches} in the patch prefill, want "
+                             f"{_want_k2(n, 'sm90')}")
+    if new.shape != (4, 16) or not ((new >= 0) & (new < cfg.vocab)).all():
+        raise AssertionError(f"qwen2-vl-72b: bad tokens after the patch prefill: {new}")
+    patch_prefill_ms = cuda_ms(lambda: model.prefill(batch, max_len=S + 16), 3, 1)
+    checks = _k2_in_model(model, batch, "sm90", 5e-2)
+    emit(phase="vlm", depth=[n, full], patch_batch=[4, S, cfg.n_patches],
+         patch_launches=patch_launches, patch_prefill_ms=patch_prefill_ms,
+         peak_gib_all=torch.cuda.max_memory_allocated() / 2**30, **checks, **run,
+         seconds=time.perf_counter() - t0)
+    del model
+    _drop_models()
+    return run["launches"]["launches_sm90"] + patch_launches["launches_sm90"]
+
+
+def phase_audio():
+    import numpy as np
+    import torch
+
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    cfg, full = _full_width("musicgen-large", dict(
+        family="audio", d_model=2048, n_heads=32, n_kv_heads=32, head_dim=64, d_ff=8192,
+        vocab=2048, codebooks=4), 48)
+    K = cfg.codebooks
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (K, int(rng.integers(128, 1025))))
+               for _ in range(8)]
+
+    def batch_of(ps):
+        """[4, K, S] codebook tokens, left-padded with 0 to the longest."""
+        S = max(p.shape[1] for p in ps)
+        toks = np.zeros((len(ps), K, S), np.int64)
+        for i, p in enumerate(ps):
+            toks[i, :, S - p.shape[1]:] = p
+        return torch.from_numpy(toks).to("cuda")
+
+    counters = _k2_counters()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    t1 = time.perf_counter()
+    batches = [batch_of(prompts[:4]), batch_of(prompts[4:])]
+    new = [_greedy(model, {"tokens": b}, b.shape[2] + 16) for b in batches]
+    generated = torch.cat(new).tolist()
+    wall = time.perf_counter() - t1
+    launches = _read(counters)
+    n = cfg.n_layers
+    if launches != _want_k2(2 * n, "sm90"):
+        raise AssertionError(f"K2 launches {launches} in the musicgen-large run: every bf16 "
+                             f"prefill layer (32/32 heads, D 64) takes the sm90 route")
+    for row in generated:
+        if len(row) != K or any(len(c) != 16 or not all(0 <= t < cfg.vocab for t in c)
+                                for c in row):
+            raise AssertionError(f"musicgen-large: bad tokens {row}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    tokens = batches[0]
+    S = tokens.shape[2]
+    prefill_ms = cuda_ms(lambda: model.prefill({"tokens": tokens}, max_len=S + 16), 3, 1)
+    logits, cache = model.prefill({"tokens": tokens}, max_len=S + 16)
+    tok = logits.argmax(-1)[..., None]
+
+    def decode_steps():
+        c, t = dict(cache), tok
+        for _ in range(16):
+            lg, c = model.decode(c, {"tokens": t})
+            t = lg.argmax(-1)[..., None]
+
+    decode_ms = cuda_ms(decode_steps, 3, 1) / 16
+    profiles = {"prefill": device_profile(
+                    lambda: model.prefill({"tokens": tokens}, max_len=S + 16), 2, top=8),
+                "decode_16_steps": device_profile(decode_steps, 2, top=8)}
+    checks = _k2_in_model(model, {"tokens": tokens}, "sm90", 5e-2)
+    emit(phase="audio", arch=cfg.arch, depth=[n, full], params=cfg.param_count(),
+         init_s=init_s, prompts=8, codebooks=K, prompt_frames=[p.shape[1] for p in prompts],
+         batches=2, new_tokens=16, wall_s=wall, frames_per_s=8 * 16 / wall,
+         prefill_ms_batch0=prefill_ms, decode_ms_per_token=decode_ms, peak_gib=peak_gib,
+         launches=launches, busy_share=busy_share(profiles), profile=profiles, **checks,
+         seconds=time.perf_counter() - t0)
+    del model, cache
+    _drop_models()
+    return launches["launches_sm90"]
+
+
+def phase_moe():
+    t0 = time.perf_counter()
+    cfg, full = _full_width("phi3.5-moe-42b-a6.6b", dict(
+        family="moe", d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128, d_ff=6400,
+        vocab=32064, n_experts=16, top_k=2, d_ff_expert=6400, capacity_factor=1.25), 16)
+    run, model, tokens = _serve(cfg, _k2_counters())
+    n = cfg.n_layers
+    if run["launches"] != _want_k2(2 * n, "sm90"):
+        raise AssertionError(f"K2 launches {run['launches']} in the phi3.5-moe run: every "
+                             f"bf16 prefill layer (32/8 heads, D 128) takes the sm90 route")
+    drops = _drops(model, tokens)
+    bf16 = _k2_in_model(model, {"tokens": tokens}, "sm90")
+    fp32 = _routed_logits_fp32(model, {"tokens": tokens})
+    emit(phase="moe", depth=[n, full], drops=drops, **bf16, **fp32, **run,
+         seconds=time.perf_counter() - t0)
+    del model
+    _drop_models()
+    return {"sm90": run["launches"]["launches_sm90"],
+            "scalar": fp32["fp32_k2_launches"]["launches_scalar"]}
+
+
+def _k2_at_deepseek_shape(max_err):
+    """K2's scalar route at deepseek-v2's prefill shape (B 4, S 1024, 128
+    heads, D 192, Dv 128, bf16, causal): held to its plain version once,
+    then timed beside it and beside scaled_dot_product_attention where that
+    takes the shape (the yardstick only; the port never calls it)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+
+    B, S, H, D, Dv = 4, 1024, 128, 192, 128
+    q, k, v = _attn_inputs(B, S, H, H, D, Dv, torch.bfloat16, 15)
+    if ops.route(q, k, v) != "scalar":
+        raise AssertionError("deepseek-v2's prefill shape does not take the scalar route")
+    err, excess = attn_excess(ops.flash_attention(q, k, v), flash_attention_torch(q, k, v))
+    if not excess <= 0:
+        raise AssertionError(f"K2 scalar at deepseek-v2's shape: error {err} exceeds its "
+                             f"tolerance by {excess}")
+    flops = 2 * B * H * (D + Dv) * S * (S + 1) / 2          # the causal pairs only
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + B * S * H * Dv)
+    b, by = bound_ms(n_bytes, flops, "bfloat16")
+    times = kernel_times(10, b, ms=lambda: ops.flash_attention_scalar(q, k, v),
+                         plain_ms=lambda: flash_attention_torch(q, k, v))
+    try:
+        sdpa = _sdpa(q, k, v, True)
+        sdpa()
+        lib = kernel_times(10, b, library_ms=sdpa)
+        lib["library_top_ms"] = device_profile(sdpa, 5, top=4)["top_ms"]
+    except RuntimeError as e:          # no SDPA backend takes D != Dv here
+        lib = {"library_ms": None, "library_event_ms": None, "timers": {},
+               "library_error": str(e)[:200]}
+    out = {**times, **lib, "timers": {**times["timers"], **lib["timers"]},
+           "max_abs_err": max(max_err, err), "shape": [B, S, H, H, D, Dv],
+           "bound_ms": b, "bound_by": by, "tflops": flops / times["ms"] / 1e9}
+    emit(phase="k2_timing", arch="deepseek-v2-236b", route="scalar", **out)
+    return out
+
+
+def phase_mla(k2_scalar_err):
+    t0 = time.perf_counter()
+    cfg, full = _full_width("deepseek-v2-236b", dict(
+        family="mla_moe", d_model=5120, n_heads=128, n_kv_heads=128, q_lora=1536,
+        kv_lora=512, nope_head_dim=128, rope_head_dim=64, v_head_dim=128, n_experts=160,
+        top_k=6, n_shared_experts=2, d_ff_expert=1536, capacity_factor=1.25,
+        vocab=102400), 4)
+    run, model, tokens = _serve(cfg, _k2_counters())
+    n = cfg.n_layers
+    if run["launches"] != _want_k2(2 * n, "scalar"):
+        raise AssertionError(f"K2 launches {run['launches']} in the deepseek-v2 run, want "
+                             f"{_want_k2(2 * n, 'scalar')}: every bf16 prefill layer (128 "
+                             f"heads, D 192, Dv 128) takes the scalar route")
+    prof = run["profile"]["prefill"]
+    share = (prof["kernel_ms"]["k2_scalar"] / prof["device_ms"]
+             if prof["device_ms"] else None)
+    drops = _drops(model, tokens)
+    bf16 = _k2_in_model(model, {"tokens": tokens}, "scalar")
+    fp32 = _routed_logits_fp32(model, {"tokens": tokens})
+    emit(phase="mla_moe", depth=[n, full], drops=drops, k2_scalar_prefill_ms=(
+        prof["kernel_ms"]["k2_scalar"]), k2_scalar_share_of_prefill=share, **bf16, **fp32,
+         **run, seconds=time.perf_counter() - t0)
+    del model
+    _drop_models()
+    timed = _k2_at_deepseek_shape(max(k2_scalar_err, bf16["layer_max_abs_err"]))
+    return {"scalar": run["launches"]["launches_scalar"],
+            "scalar_fp32": fp32["fp32_k2_launches"]["launches_scalar"], "timed": timed}
 
 
 # ------------------------------------------------------ child processes ----
@@ -1556,7 +2028,7 @@ def main() -> int:
 
 
 def run_phases(torch) -> list:
-    """Phases 1-11; returns the lines that end the output (the kernels line,
+    """Phases 1-15; returns the lines that end the output (the kernels line,
     the card's name and power limit, the result), printed once every process
     the phases started has ended."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1579,7 +2051,25 @@ def run_phases(torch) -> list:
         phase_scale(Path(tmp))
         k1_chaos_launches = phase_chaos(Path(tmp))
     phase_orchestrators()
+    families = {}
+    for name, phase in (("qwen2-vl-72b", phase_vlm), ("musicgen-large", phase_audio),
+                        ("phi3.5-moe-42b-a6.6b", phase_moe),
+                        ("deepseek-v2-236b", lambda: phase_mla(k2["scalar"]["max_abs_err"]))):
+        families[name] = phase()
     emit(phase="total", seconds=time.perf_counter() - t_start)
+    mla = families["deepseek-v2-236b"]
+    sm90_paths = {"llama3.2-3b": k2_launches, "zamba2-1.2b": hybrid["k2_sm90"],
+                  "qwen2-vl-72b": families["qwen2-vl-72b"],
+                  "musicgen-large": families["musicgen-large"],
+                  "phi3.5-moe-42b-a6.6b": families["phi3.5-moe-42b-a6.6b"]["sm90"]}
+    scalar_paths = {"zamba2-1.2b fp32": hybrid["k2_scalar"],
+                    "deepseek-v2-236b": mla["scalar"],
+                    "phi3.5-moe-42b-a6.6b fp32": families["phi3.5-moe-42b-a6.6b"]["scalar"],
+                    "deepseek-v2-236b fp32": mla["scalar_fp32"]}
+    # the scalar route's main path is deepseek-v2's bf16 prefill: its row is
+    # timed at that shape; the llama3.2-3b shape's numbers stay beside them
+    scalar_at_llama = {k: k2["scalar"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                     "library_ms")}
     kernels = [
         {"name": "event_join", "route": "cuda", "source": "src/repro_torch/csrc/event_join.cu",
          "replaces": "src/repro/kernels/event_join/event_join.py:51",
@@ -1588,11 +2078,12 @@ def run_phases(torch) -> list:
         {"name": "flash_attention_sm90", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
-         "launches": k2_launches + hybrid["k2_sm90"], **k2["sm90"]},
+         "launches": sum(sm90_paths.values()), "launches_by_path": sm90_paths, **k2["sm90"]},
         {"name": "flash_attention_scalar", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
-         "launches": hybrid["k2_scalar"], **k2["scalar"]},
+         "launches": sum(scalar_paths.values()), "launches_by_path": scalar_paths,
+         **mla["timed"], "at_llama_shape": scalar_at_llama},
         {"name": "ssd_scan_sm90", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan_sm90.cu",
          "replaces": "src/repro/kernels/ssd/ssd.py:78",
@@ -1606,7 +2097,8 @@ def run_phases(torch) -> list:
         raise AssertionError(f"kernels never launched on the main path: {idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("launches_shard_path", "launches_chaos_join")
+    extra = ("launches_shard_path", "launches_chaos_join", "launches_by_path",
+             "at_llama_shape")
     return [json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                     for kern in kernels]}),
             card,

@@ -7,7 +7,12 @@ a rename (path parts joined by ``.``) plus a split of the stacked layer
 axis: ``layers/attn/wq[i]`` becomes ``layers.{i}.attn.wq``.  A model built
 with ``scan_layers=False`` (zamba2) has its layers unstacked already, as
 ``layers/l{i}/…`` and ``shared_proj/s{i}``; they become ``layers.{i}.…``
-and ``shared_proj.{i}``.  A bf16 leaf
+and ``shared_proj.{i}``.  The other families need no rule of their own:
+audio's ``embed`` [K,V,D] and ``heads`` [K,D,V] keep their names, the
+MoE's stacked ``layers/moe/{router,wg,wu,wd}`` and ``layers/moe/shared/…``
+split like any stacked leaf, and mla_moe's unstacked ``layer0/…`` keeps
+its name beside its stack ``layers``, whose index i is the reference's
+layer i + 1 in both packages.  A bf16 leaf
 arrives as an ``ml_dtypes.bfloat16`` array, which torch cannot read; it goes
 through fp32, which holds every bf16 value exactly.
 """

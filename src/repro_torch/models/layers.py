@@ -1,5 +1,5 @@
-"""Transformer layers, dense subset: RMSNorm, RoPE, GQA attention (naive,
-chunked online-softmax and decode) and the SwiGLU MLP.
+"""Transformer layers: RMSNorm, RoPE and Qwen2-VL's M-RoPE, GQA attention
+(naive, chunked online-softmax and decode) and the SwiGLU MLP.
 
 Plain functions on tensors, with the JAX package's parameter layouts
 (``wq [d_model, H, hd]``, ``wo [H, hd, d_model]``, ``wg [d_model, d_ff]``, …)
@@ -8,7 +8,8 @@ are bf16 whatever the activation dtype; JAX promotes a mixed fp32×bf16
 einsum to fp32, torch does not promote, so every weight is cast to the
 activation dtype where it is used.
 
-Prefill attention on a CUDA tensor goes through the hand-written kernel
+Prefill attention (``attention``, which ``models.mla`` calls too) on a
+CUDA tensor goes through the hand-written kernel
 (``kernels.flash_attention``); on the CPU it takes ``attention_chunked``,
 the JAX package's own path.  Decode attention is plain torch, as it is plain
 jnp in the reference.
@@ -64,6 +65,26 @@ def apply_rope(x, cos, sin):
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     cos, sin = cos.to(x.dtype), sin.to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def mrope_angles(positions3, head_dim: int, sections, theta: float = 10000.0):
+    """Qwen2-VL M-RoPE: positions3 [B,S,3] (t,h,w); ``sections`` split the
+    rotary half-dim across the three position streams → cos/sin [B,S,half]
+    in fp32 (positions are cast to fp32 before the angles, as in the JAX
+    package)."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to {half}")
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions3.device) / half)
+    coss, sins = [], []
+    start = 0
+    for i, sec in enumerate(sections):
+        ang = positions3[..., i].float()[..., None] * freqs[start:start + sec]
+        coss.append(torch.cos(ang))
+        sins.append(torch.sin(ang))
+        start += sec
+    return torch.cat(coss, -1), torch.cat(sins, -1)
 
 
 # -- attention ------------------------------------------------------------------------
@@ -130,6 +151,14 @@ def attention_chunked(q, k, v, causal=True, kv_len=None, pos_offset=0,
     return torch.cat(outs, dim=1)
 
 
+def attention(q, k, v, causal=True, q_chunk=2048, kv_chunk=2048):
+    """Prefill attention: K2 (``flash_attention``) on a CUDA tensor, the JAX
+    package's chunked path on the CPU."""
+    if q.is_cuda:
+        return flash_attention(q, k, v, causal=causal)
+    return attention_chunked(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+
 def attention_decode(q, k_cache, v_cache, pos):
     """Single-token decode vs a (padded) cache.  q [B,1,Hq,D],
     caches [B,T,Hkv,D], ``pos`` = number of valid cache entries (int or [B])."""
@@ -178,11 +207,7 @@ def gqa_forward(p: GQA, x, cos, sin, causal=True, q_chunk=2048, kv_chunk=2048):
     q, k, v = gqa_qkv(p, x)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if q.is_cuda:
-        attn = flash_attention(q, k, v, causal=causal)
-    else:
-        attn = attention_chunked(q, k, v, causal=causal, q_chunk=q_chunk,
-                                 kv_chunk=kv_chunk)
+    attn = attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
     return gqa_out(p, attn), (k, v)
 
 

@@ -1,17 +1,28 @@
-"""Decoder LM: config → init / forward / prefill / decode, families
-``dense`` and ``hybrid``.
+"""Decoder LM: config → init / forward / prefill / decode.
 
 ``ModelConfig`` keeps every field of the JAX package's, with torch dtypes in
-place of jnp ones.  ``Model`` is an ``nn.Module`` for the llama-style GQA
-transformer (granite-20b, deepseek-67b, yi-9b, llama3.2-3b) and for zamba2's
-hybrid: a Mamba2 backbone (``models.ssm``) with one weight-shared attention
-block applied before every ``attn_every``-th layer to concat(x, embeddings)
-through a per-site projection.  The reference scans the dense layers over
-params stacked on axis 0; here that axis is split into a ``ModuleList``, so
-``layers.{i}.attn.wq`` is the reference's ``layers/attn/wq[i]``, and the
+place of jnp ones.  ``Model`` is an ``nn.Module`` for these families:
+
+dense   llama-style GQA transformer (granite-20b, deepseek-67b, yi-9b,
+        llama3.2-3b)
+vlm     the dense backbone with Qwen2-VL's M-RoPE and precomputed patch
+        embeddings scattered over the tokens (the vision frontend is a stub)
+audio   the dense backbone over K EnCodec codebooks: tokens [B,K,S], their
+        K embeddings summed in, K heads out (logits [B,S,K,V])
+moe     dense attention + MoE FFN (phi3.5-moe, ``models.moe``)
+mla_moe DeepSeek-V2: MLA attention (``models.mla``) + shared and routed
+        experts, layer 0's FFN dense
+hybrid  zamba2: a Mamba2 backbone (``models.ssm``) with one weight-shared
+        attention block applied before every ``attn_every``-th layer to
+        concat(x, embeddings) through a per-site projection
+
+The reference scans uniform stacks over params stacked on axis 0; here that
+axis is split into a ``ModuleList``, so ``layers.{i}.attn.wq`` is the
+reference's ``layers/attn/wq[i]``; mla_moe's unstacked ``layer0`` keeps its
+name, and its stack ``layers.{i}`` is the reference's layer i + 1.  The
 hybrid's ``layers/l{i}`` and ``shared_proj/s{i}`` are ``layers.{i}`` and
-``shared_proj.{i}`` (``models.convert.params_from_jax``).  Other families
-raise ``NotImplementedError`` (ROADMAP.md, open item 1).
+``shared_proj.{i}`` (``models.convert.params_from_jax``).  ``xlstm``
+raises ``NotImplementedError`` (ROADMAP.md, open item 1).
 
 Weights are drawn on ``device`` from a ``torch.Generator`` seeded with
 ``seed``; they are bf16 whatever ``cfg.dtype`` is, as in the reference.
@@ -28,6 +39,8 @@ import torch
 from torch import nn
 
 from . import layers as L
+from . import mla as MLA
+from . import moe as MOE
 from . import ssm as SSM
 from .common import make_param
 
@@ -100,28 +113,45 @@ class ModelConfig:
             return []
         return [i for i in range(self.n_layers) if i % self.attn_every == 0]
 
+
     def param_count(self) -> int:
         """Parameter count from the shapes ``Model`` builds."""
         _require_ported(self)
-        d, hd = self.d_model, self.head_dim
-        attn_block = (2 * d                                  # ln1, ln2
-                      + d * self.n_heads * hd * 2            # wq, wo
-                      + d * self.n_kv_heads * hd * 2         # wk, wv
-                      + 3 * d * self.d_ff)                   # wg, wu, wd
-        outer = 2 * self.vocab * d + d                       # embed, lm_head, final_norm
-        if self.family == "dense":
-            return outer + self.n_layers * attn_block
+        d, hd, fam = self.d_model, self.head_dim, self.family
+        norms = 2 * d                                        # ln1, ln2
+        gqa = d * self.n_heads * hd * 2 + d * self.n_kv_heads * hd * 2   # wq, wo; wk, wv
+
+        def mlp(f):
+            return 3 * d * f                                 # wg, wu, wd
+
+        moe = (d * self.n_experts + self.n_experts * mlp(self.d_ff_expert)
+               + mlp(self.d_ff_expert * self.n_shared_experts))          # router, experts, shared
+        H, ql, kvl = self.n_heads, self.q_lora, self.kv_lora
+        mla = (d * ql + ql + ql * H * (self.nope_head_dim + self.rope_head_dim)
+               + d * kvl + kvl + kvl * H * (self.nope_head_dim + self.v_head_dim)
+               + d * self.rope_head_dim + H * self.v_head_dim * d)
+        books = self.codebooks if fam == "audio" else 1
+        outer = 2 * books * self.vocab * d + d               # embed, lm_head/heads, final_norm
+        if fam in ("dense", "vlm", "audio"):
+            return outer + self.n_layers * (norms + gqa + mlp(self.d_ff))
+        if fam == "moe":
+            return outer + self.n_layers * (norms + gqa + moe)
+        if fam == "mla_moe":
+            return (outer + norms + mla + mlp(self.d_ff_expert * 8)
+                    + (self.n_layers - 1) * (norms + mla + moe))
         di = self.ssm_expand * d
-        H, N = di // self.ssm_headdim, self.ssm_state
+        Hs, N = di // self.ssm_headdim, self.ssm_state
         mamba = (d                                           # the layer's norm
                  + 3 * d * di                                # wz, wx, wo
                  + 4 * di + di + di                          # conv_w, conv_b, out_norm
-                 + 2 * d * N + d * H + 3 * H)                # wB, wC, wdt, dt_bias, a_log, d_skip
-        return (outer + attn_block + len(self.shared_sites()) * 2 * d * d
+                 + 2 * d * N + d * Hs + 3 * Hs)              # wB, wC, wdt, dt_bias, a_log, d_skip
+        return (outer + norms + gqa + mlp(self.d_ff) + len(self.shared_sites()) * 2 * d * d
                 + self.n_layers * mamba)
 
 
-PORTED_FAMILIES = ("dense", "hybrid")
+# the families whose layers are GQA attention with a K/V cache
+GQA_FAMILIES = ("dense", "vlm", "audio", "moe")
+PORTED_FAMILIES = GQA_FAMILIES + ("mla_moe", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -131,14 +161,30 @@ def _require_ported(cfg: ModelConfig) -> None:
             f"the port runs {PORTED_FAMILIES} (ROADMAP.md, open item 1)")
 
 
-class DenseLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device=None):
+class Layer(nn.Module):
+    """A pre-norm block: ``ln1``, attention (GQA, or MLA with ``mla``),
+    ``ln2``, then the FFN: a SwiGLU ``mlp`` of width ``d_ff`` (the
+    config's by default) or, with ``moe``, the MoE layer."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device=None,
+                 mla: bool = False, moe: bool = False, d_ff: Optional[int] = None):
         super().__init__()
         self.ln1 = L.RMSNorm(cfg.d_model, device)
-        self.attn = L.GQA(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                          cfg.head_dim, device)
+        if mla:
+            self.attn = MLA.MLA(gen, cfg.d_model, cfg.n_heads, cfg.q_lora, cfg.kv_lora,
+                                cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim,
+                                device)
+        else:
+            self.attn = L.GQA(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.head_dim, device)
         self.ln2 = L.RMSNorm(cfg.d_model, device)
-        self.mlp = L.MLP(gen, cfg.d_model, cfg.d_ff, device)
+        if moe:
+            self.mlp = None
+            self.moe = MOE.MoE(gen, cfg.d_model, cfg.d_ff_expert, cfg.n_experts,
+                               cfg.n_shared_experts, device)
+        else:
+            self.mlp = L.MLP(gen, cfg.d_model, d_ff or cfg.d_ff, device)
+            self.moe = None
 
 
 class MambaLayer(nn.Module):
@@ -155,17 +201,27 @@ class Model(nn.Module):
         _require_ported(cfg)
         self.cfg = cfg
         gen = torch.Generator(device=device).manual_seed(seed)
-        d = cfg.d_model
-        self.embed = make_param(gen, (cfg.vocab, d), 0.02, device=device)
-        self.lm_head = make_param(gen, (d, cfg.vocab), d ** -0.5, device=device)
+        d, fam = cfg.d_model, cfg.family
+        if fam == "audio":
+            self.embed = make_param(gen, (cfg.codebooks, cfg.vocab, d), 0.02, device=device)
+            self.heads = make_param(gen, (cfg.codebooks, d, cfg.vocab), d ** -0.5,
+                                    device=device)
+        else:
+            self.embed = make_param(gen, (cfg.vocab, d), 0.02, device=device)
+            self.lm_head = make_param(gen, (d, cfg.vocab), d ** -0.5, device=device)
         self.final_norm = L.RMSNorm(d, device)
-        if cfg.family == "dense":
-            self.layers = nn.ModuleList(DenseLayer(cfg, gen, device)
+        if fam in GQA_FAMILIES:
+            self.layers = nn.ModuleList(Layer(cfg, gen, device, moe=fam == "moe")
                                         for _ in range(cfg.n_layers))
+        elif fam == "mla_moe":
+            # DeepSeek-V2: layer 0's FFN is dense, of width d_ff_expert * 8
+            self.layer0 = Layer(cfg, gen, device, mla=True, d_ff=cfg.d_ff_expert * 8)
+            self.layers = nn.ModuleList(Layer(cfg, gen, device, mla=True, moe=True)
+                                        for _ in range(cfg.n_layers - 1))
         else:
             # zamba2: one attention block whose weights every site shares, a
             # [2d, d] projection of concat(x, embeddings) per site
-            self.shared_attn = DenseLayer(cfg, gen, device)
+            self.shared_attn = Layer(cfg, gen, device)
             self.layers = nn.ModuleList(MambaLayer(cfg, gen, device)
                                         for _ in range(cfg.n_layers))
             self.shared_proj = nn.ParameterList(
@@ -173,29 +229,77 @@ class Model(nn.Module):
                 for _ in cfg.shared_sites())
 
     # ------------------------------------------------------------- helpers ----
-    def _embed(self, tokens):
-        return self.embed[tokens].to(self.cfg.dtype)
+    def _embed(self, batch):
+        """tokens [B,S] (audio: [B,K,S], the K codebooks' embeddings summed)
+        → [B,S,D] in ``cfg.dtype``.  vlm: ``patch_embeds`` [B,P,D] replace
+        the token embeddings at ``patch_positions`` [B,P] (the vision
+        frontend is a stub, as in the reference), cast to the embedding's
+        bf16 first, as the reference does."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        if cfg.family == "audio":
+            x = torch.zeros(tokens.shape[0], tokens.shape[2], cfg.d_model, dtype=cfg.dtype,
+                            device=tokens.device)
+            for kb in range(cfg.codebooks):
+                x = x + self.embed[kb][tokens[:, kb]].to(cfg.dtype)
+            return x
+        x = self.embed[tokens]
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            where = batch["patch_positions"]
+            rows = torch.arange(x.shape[0], device=x.device)[:, None].expand_as(where)
+            x[rows, where] = batch["patch_embeds"].to(x.dtype)
+        return x.to(cfg.dtype)
 
-    def _rope(self, positions):
-        return L.rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
+    def _rope(self, batch, S, device):
+        """cos/sin for positions [0, S): vlm's M-RoPE from ``positions3``
+        [B,S,3] (t, h, w) where the batch has it, else the positions
+        broadcast to all three."""
+        cfg = self.cfg
+        pos = torch.arange(S, device=device)
+        if cfg.family == "vlm":
+            pos3 = batch.get("positions3")
+            if pos3 is None:
+                pos3 = pos[None, :, None].expand(1, S, 3)
+            return L.mrope_angles(pos3, cfg.head_dim, cfg.mrope_sections, cfg.rope_theta)
+        return L.rope_angles(pos, cfg.head_dim, cfg.rope_theta)
 
     def _unembed(self, x):
         x = self.final_norm(x)
-        logits = torch.einsum("bsd,dv->bsv", x, self.lm_head.to(x.dtype))
+        if self.cfg.family == "audio":
+            logits = torch.einsum("bsd,kdv->bskv", x, self.heads.to(x.dtype))
+        else:
+            logits = torch.einsum("bsd,dv->bsv", x, self.lm_head.to(x.dtype))
         return logits.float()
 
-    def _block(self, lp: DenseLayer, x, cos, sin):
+    def _ffn(self, lp: Layer, x):
+        """x + the layer's FFN of ln2(x) → (x, the MoE's aux loss or None)."""
+        cfg = self.cfg
+        if lp.moe is None:
+            return x + L.mlp_forward(lp.mlp, lp.ln2(x)), None
+        m, aux = MOE.moe_forward(lp.moe, lp.ln2(x), cfg.top_k, cfg.capacity_factor)
+        return x + m, aux
+
+    def _block(self, lp: Layer, x, cos, sin):
         cfg = self.cfg
         h, kv = L.gqa_forward(lp.attn, lp.ln1(x), cos, sin, q_chunk=cfg.q_chunk,
                               kv_chunk=cfg.kv_chunk)
-        x = x + h
-        x = x + L.mlp_forward(lp.mlp, lp.ln2(x))
-        return x, kv
+        x, aux = self._ffn(lp, x + h)
+        return x, kv, aux
 
-    def _decode_block(self, lp: DenseLayer, x, k_cache, v_cache, pos, cos, sin):
+    def _mla_block(self, lp: Layer, x, positions):
+        cfg = self.cfg
+        h, latent = MLA.mla_forward(lp.attn, lp.ln1(x), positions, cfg.nope_head_dim,
+                                    cfg.rope_head_dim, cfg.rope_theta, cfg.q_chunk,
+                                    cfg.kv_chunk)
+        x, aux = self._ffn(lp, x + h)
+        return x, latent, aux
+
+    def _mla_layers(self):
+        return [self.layer0, *self.layers]
+
+    def _decode_block(self, lp: Layer, x, k_cache, v_cache, pos, cos, sin):
         h, _, _ = L.gqa_decode(lp.attn, lp.ln1(x), k_cache, v_cache, pos, cos, sin)
-        x = x + h
-        return x + L.mlp_forward(lp.mlp, lp.ln2(x))
+        return self._ffn(lp, x + h)[0]
 
     def _site_input(self, site: int, x, x0):
         """Zamba2's shared block reads concat(x, embeddings) through the
@@ -203,25 +307,35 @@ class Model(nn.Module):
         return torch.cat([x, x0], dim=-1) @ self.shared_proj[site].to(x.dtype)
 
     def _layers(self, x, cos, sin, cache=None):
-        """Every layer over the full sequence.  With ``cache``, write the
-        attention K/V at positions [0, S) and, for the hybrid, each Mamba2
-        layer's final state and conv cache."""
+        """Every layer over the full sequence → (x, the MoE layers' summed
+        aux loss).  With ``cache``, write the attention K/V (mla_moe: the
+        latent and the RoPE key) at positions [0, S) and, for the hybrid,
+        each Mamba2 layer's final state and conv cache."""
         cfg = self.cfg
         S = x.shape[1]
-        if cfg.family == "dense":
-            for i, lp in enumerate(self.layers):
-                x, (k, v) = self._block(lp, x, cos, sin)
+        aux_total = torch.zeros((), device=x.device)
+        if cfg.family in GQA_FAMILIES or cfg.family == "mla_moe":
+            mla = cfg.family == "mla_moe"
+            names = ("ckv", "kr") if mla else ("k", "v")
+            positions = torch.arange(S, device=x.device)
+            for i, lp in enumerate(self._mla_layers() if mla else self.layers):
+                if mla:
+                    x, (a, b), aux = self._mla_block(lp, x, positions)
+                else:
+                    x, (a, b), aux = self._block(lp, x, cos, sin)
+                if aux is not None:
+                    aux_total = aux_total + aux
                 if cache is not None:
-                    cache["k"][i, :, :S] = k
-                    cache["v"][i, :, :S] = v
-            return x
+                    cache[names[0]][i, :, :S] = a
+                    cache[names[1]][i, :, :S] = b
+            return x, aux_total
         x0 = x
         sites = cfg.shared_sites()
         for i, lp in enumerate(self.layers):
             if i in sites:
                 site = sites.index(i)
-                h, (k, v) = self._block(self.shared_attn, self._site_input(site, x, x0),
-                                        cos, sin)
+                h, (k, v), _ = self._block(self.shared_attn, self._site_input(site, x, x0),
+                                           cos, sin)
                 x = x + h
                 if cache is not None:
                     cache["k"][site, :, :S] = k
@@ -234,24 +348,30 @@ class Model(nn.Module):
                     *args, return_state=True, decay_dtype=cfg.ssd_decay_dtype)
                 cache["ssm"][i], cache["conv"][i] = state, conv
                 x = x + out
-        return x
+        return x, aux_total
 
     # ------------------------------------------------------------ forward ----
     def forward(self, batch: Dict[str, torch.Tensor]):
-        """Full-sequence forward → (logits [B,S,V] fp32, aux loss 0)."""
-        tokens = batch["tokens"]
-        cos, sin = self._rope(torch.arange(tokens.shape[1], device=tokens.device))
-        x = self._layers(self._embed(tokens), cos, sin)
-        return self._unembed(x), torch.zeros((), device=tokens.device)
+        """Full-sequence forward → (logits [B,S,V] fp32 (audio: [B,S,K,V]),
+        the MoE layers' summed aux loss, 0 without MoE)."""
+        x = self._embed(batch)
+        cos, sin = self._rope(batch, x.shape[1], x.device)
+        x, aux = self._layers(x, cos, sin)
+        return self._unembed(x), aux
 
     # ------------------------------------------------------- prefill/decode ----
     def init_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
         cfg = self.cfg
         dev = self.embed.device
-        if cfg.family == "dense":
+        if cfg.family in GQA_FAMILIES:
             kv = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
             return {"k": torch.zeros(kv, dtype=cfg.dtype, device=dev),
                     "v": torch.zeros(kv, dtype=cfg.dtype, device=dev),
+                    "pos": 0}
+        if cfg.family == "mla_moe":
+            lat = (cfg.n_layers, batch_size, max_len)
+            return {"ckv": torch.zeros(*lat, cfg.kv_lora, dtype=cfg.dtype, device=dev),
+                    "kr": torch.zeros(*lat, cfg.rope_head_dim, dtype=cfg.dtype, device=dev),
                     "pos": 0}
         di = cfg.ssm_expand * cfg.d_model
         H = di // cfg.ssm_headdim
@@ -266,14 +386,16 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: Optional[int] = None):
-        """Forward over the prompt → (last-position logits [B,V] fp32, cache
-        holding the prompt's K/V at positions [0, S) and, for the hybrid, the
-        Mamba2 states after it)."""
+        """Forward over the prompt → (last-position logits [B,V] fp32
+        (audio: [B,K,V]), cache holding the prompt's K/V (mla_moe: latent
+        and RoPE key) at positions [0, S) and, for the hybrid, the Mamba2
+        states after it)."""
         tokens = batch["tokens"]
-        B, S = tokens.shape
+        B, S = tokens.shape[0], tokens.shape[-1]
         cache = self.init_cache(B, max_len or S)
-        cos, sin = self._rope(torch.arange(S, device=tokens.device))
-        x = self._layers(self._embed(tokens), cos, sin, cache)
+        x = self._embed(batch)
+        cos, sin = self._rope(batch, S, tokens.device)
+        x, _ = self._layers(x, cos, sin, cache)
         cache["pos"] = S
         # the last position alone goes through the head: the reference
         # computes every position's logits and keeps the last
@@ -281,16 +403,28 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def decode(self, cache: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-        """One decode step: batch['tokens'] [B,1] → (logits [B,V] fp32, cache
-        with ``pos`` advanced).  The cache's K/V tensors are updated in place;
-        the hybrid's SSM and conv states come back as new tensors."""
+        """One decode step: batch['tokens'] [B,1] (audio: [B,K,1]) →
+        (logits [B,V] fp32 (audio: [B,K,V]), cache with ``pos`` advanced).
+        The cache's K/V (latent) tensors are updated in place; the hybrid's
+        SSM and conv states come back as new tensors."""
         cfg = self.cfg
         pos = cache["pos"]
-        tokens = batch["tokens"]
-        B = tokens.shape[0]
-        x = self._embed(tokens)
-        cos, sin = self._rope(torch.full((B, 1), pos, device=tokens.device))
-        if cfg.family == "dense":
+        x = self._embed(batch)
+        if cfg.family == "mla_moe":
+            for i, lp in enumerate(self._mla_layers()):
+                h, _, _ = MLA.mla_decode(lp.attn, lp.ln1(x), cache["ckv"][i], cache["kr"][i],
+                                         pos, cfg.nope_head_dim, cfg.rope_head_dim,
+                                         cfg.rope_theta)
+                x, _ = self._ffn(lp, x + h)
+            return self._unembed(x)[:, -1], {**cache, "pos": pos + 1}
+        B = x.shape[0]
+        posb = torch.full((B, 1), pos, device=x.device)
+        if cfg.family == "vlm":
+            cos, sin = L.mrope_angles(posb[..., None].expand(B, 1, 3), cfg.head_dim,
+                                      cfg.mrope_sections, cfg.rope_theta)
+        else:
+            cos, sin = L.rope_angles(posb, cfg.head_dim, cfg.rope_theta)
+        if cfg.family in GQA_FAMILIES:
             for i, lp in enumerate(self.layers):
                 x = self._decode_block(lp, x, cache["k"][i], cache["v"][i], pos, cos, sin)
             return self._unembed(x)[:, -1], {**cache, "pos": pos + 1}

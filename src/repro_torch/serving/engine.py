@@ -7,6 +7,10 @@ steps on the Triggerflow's device, and emits one termination event per
 request.  Scale-to-zero falls out of Triggerflow: no requests → no events →
 the worker is reclaimed.  The action is ``serve.batch`` in the port's own
 ``PYFUNCS``, so the JAX package's engine and this one never share it.
+
+Prompts are token lists, batched as [B, S], as in the JAX package's engine,
+so the audio family (tokens [B, K, S] over K codebooks) is refused here and
+runs at the model level (``Model.prefill`` / ``Model.decode``).
 """
 from __future__ import annotations
 
@@ -27,6 +31,10 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, tf: Triggerflow, workflow: str,
                  max_batch: int = 4, max_new_tokens: int = 16,
                  max_len: int = 256):
+        if cfg.family == "audio":
+            raise ValueError(f"{cfg.arch}: the serving engine batches [B, S] token "
+                             f"prompts; the audio family takes [B, K, S] codebook "
+                             f"tokens and runs at the model level")
         self.cfg = cfg
         self.tf = tf
         self.workflow = workflow

@@ -21,8 +21,12 @@ tensor-core products into two bf16 terms, as the kernel does).  Kernel and
 plain version compute in fp32 in another order (the chunk's cumsum of a·dt
 included), so the state and fp32 outputs differ by at most
 1e-4·(1 + max|want|), and bf16 outputs by one rounding flip more,
-2**-7 |want|.
+2**-7 |want|.  The model families of the vlm, audio, moe and mla_moe kinds
+prefill on the card against the same weights on the CPU, at smoke size in
+fp32: their attention takes K2's scalar route on the card and the chunked
+plain path on the CPU, so logits and cache agree within 1e-4·(1 + max|cpu|).
 """
+import dataclasses
 import os
 import sys
 import threading
@@ -331,3 +335,45 @@ def test_ssd_sm90_refuses_what_it_does_not_take(cuda):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ssd_ops.ssd(x, dt, Bm, Cm, a, decay_dtype=torch.bfloat16)
     assert ssd_ops.launches == before
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "musicgen-large", "phi3.5-moe-42b-a6.6b",
+                                  "deepseek-v2-236b"])
+def test_family_prefill_on_the_card_matches_the_cpu(cuda, arch):
+    """Model-level prefill and one decode step, card against CPU, at smoke
+    size in fp32 (vlm with patch embeddings and positions3); every prefill
+    layer launches K2 once."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
+    cpu = Model(cfg, device="cpu")
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    B, S = 2, 40
+    rng = np.random.default_rng(0)
+    shape = (B, cfg.codebooks, S) if cfg.family == "audio" else (B, S)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, shape))}
+    if cfg.family == "vlm":
+        P = cfg.n_patches
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, P, cfg.d_model)).astype(np.float32))
+        batch["patch_positions"] = torch.arange(4, 4 + P).repeat(B, 1)
+        pos3 = torch.arange(S)[None, :, None].repeat(B, 1, 3)
+        pos3[:, 4:4 + P, 1] += torch.arange(P) % 3
+        batch["positions3"] = pos3
+    before = fa_ops.launches
+    got, got_cache = card.prefill({k: v.to(cuda) for k, v in batch.items()}, max_len=S + 2)
+    assert fa_ops.launches == before + cfg.n_layers
+    want, want_cache = cpu.prefill(batch, max_len=S + 2)
+
+    def close(a, b):
+        assert (a.cpu() - b).abs().max().item() <= 1e-4 * (1 + b.abs().max().item())
+
+    close(got, want)
+    for key in ("ckv", "kr") if cfg.family == "mla_moe" else ("k", "v"):
+        close(got_cache[key], want_cache[key])
+    tok = want.argmax(-1)[..., None]
+    got, _ = card.decode(got_cache, {"tokens": tok.to(cuda)})
+    want, _ = cpu.decode(want_cache, {"tokens": tok})
+    close(got, want)

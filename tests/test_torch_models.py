@@ -1,11 +1,13 @@
-"""The port's dense model stack against the JAX package's, on the CPU.
+"""The port's model stack against the JAX package's, on the CPU.
 
 Layers get the same numpy inputs in both packages (fp32, atol 2e-5: the
-two sum in another order).  Each dense arch runs at its smoke config in fp32
-with the reference's own weights (``params_from_jax``); forward, prefill
-(logits and cache) and one decode step must agree within
-1e-4·(1 + max|ref|), the summation-order slack of XLA-CPU against torch
-over a few layers.
+two sum in another order).  Each dense arch, and each arch of the vlm,
+audio, moe and mla_moe families, runs at its smoke config in fp32 with the
+reference's own weights (``params_from_jax``); forward, prefill (logits and
+cache) and one decode step must agree within 1e-4·(1 + max|ref|), the
+summation-order slack of XLA-CPU against torch over a few layers.  The
+routing families' experts and dropped token-slots must be equal exactly,
+in prefill and in decode.
 """
 import dataclasses
 import itertools
@@ -26,6 +28,9 @@ from repro_torch.models import layers as TL
 from repro_torch.models.convert import params_from_jax
 
 DENSE = [a for a in ARCHS if get_config(a).family == "dense"]
+FAMILIES = ("vlm", "audio", "moe", "mla_moe")
+OTHER_FAMILIES = [a for a in ARCHS if get_config(a).family in FAMILIES]
+ROUTED = [a for a in ARCHS if get_config(a).family in ("moe", "mla_moe")]
 
 
 def _np(seed, *shape):
@@ -119,9 +124,11 @@ def test_decode_past_the_cache_clamps_in_the_reference_and_raises_in_the_port():
 
 
 # ----------------------------------------------------------------- models ----
-def _pair(arch):
-    jcfg = dataclasses.replace(jax_get_config(arch, smoke=True), dtype=jnp.float32)
-    tcfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
+def _pair(arch, **over):
+    jcfg = dataclasses.replace(jax_get_config(arch, smoke=True), dtype=jnp.float32, **over)
+    tcfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32,
+                               **{k: v for k, v in over.items()
+                                  if k not in ("scan_layers", "remat")})
     jmodel = JaxModel(jcfg)
     params = unbox(jmodel.init(jax.random.PRNGKey(0)))
     tmodel = Model(tcfg, device="cpu")
@@ -171,9 +178,153 @@ def test_dense_model_matches_reference(arch):
     assert err < 1e-2 * (1 + float(got[:, -1].abs().max())), err
 
 
+def _batch(cfg, B, S, seed=0):
+    """Seeded numpy inputs for both packages: tokens [B,S] (audio: [B,K,S]);
+    vlm: patch embeddings at positions [3, 3 + n_patches) and positions3,
+    (t, h, w), a grid over the patches as Qwen2-VL lays an image out."""
+    rng = np.random.default_rng(seed)
+    shape = (B, cfg.codebooks, S) if cfg.family == "audio" else (B, S)
+    batch = {"tokens": rng.integers(0, cfg.vocab, shape).astype(np.int32)}
+    if cfg.family == "vlm":
+        P = cfg.n_patches
+        batch["patch_embeds"] = rng.standard_normal((B, P, cfg.d_model)).astype(np.float32)
+        batch["patch_positions"] = np.tile(np.arange(3, 3 + P)[None], (B, 1)).astype(np.int32)
+        pos3 = np.tile(np.arange(S)[None, :, None], (B, 1, 3))
+        side = int(P ** 0.5)
+        grid = np.arange(P)
+        pos3[:, 3:3 + P] = 3 + np.stack([np.zeros(P), grid // side, grid % side], -1)
+        pos3[:, 3 + P:] = 3 + side + np.arange(S - 3 - P)[:, None]
+        batch["positions3"] = pos3.astype(np.int32)
+    return batch
+
+
+def _to(batch, pkg, S=None):
+    """The batch for one package, its sequence axes cut to S."""
+    out = {}
+    for k, v in batch.items():
+        if S is not None and k in ("tokens", "positions3"):
+            v = v[..., :S] if k == "tokens" else v[:, :S]
+        out[k] = jnp.asarray(v) if pkg == "jax" else (
+            torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v))
+    return out
+
+
+@pytest.mark.parametrize("arch", OTHER_FAMILIES)
+def test_family_matches_reference(arch):
+    """tests/test_models.py:69-97 on the port, against the reference, at
+    capacity_factor 8.0: forward (audio's logits [B,S,K,V]; vlm with patch
+    embeddings, their positions and positions3), param_count, prefill on
+    all but the last token (logits and cache), one decode step on it."""
+    jmodel, params, tmodel = _pair(arch, capacity_factor=8.0)
+    cfg = tmodel.cfg
+    B, S = 2, 24
+    batch = _batch(cfg, B, S)
+    assert cfg.param_count() == jmodel.cfg.param_count()
+    assert cfg.param_count() == sum(p.numel() for p in tmodel.parameters())
+
+    want, want_aux = jmodel.forward(params, _to(batch, "jax"))
+    with torch.no_grad():
+        got, aux = tmodel.forward(_to(batch, "torch"))
+    heads = (cfg.codebooks,) if cfg.family == "audio" else ()
+    assert got.shape == (B, S, *heads, cfg.vocab)
+    _close(got, want, _tol(want))
+    _close(aux, want_aux, _tol(want_aux))
+    assert (float(aux) > 0) == (cfg.family in ("moe", "mla_moe"))
+
+    jl, jcache = jmodel.prefill(params, _to(batch, "jax", S - 1), max_len=S + 4)
+    tl, tcache = tmodel.prefill(_to(batch, "torch", S - 1), max_len=S + 4)
+    assert tl.shape == (B, *heads, cfg.vocab)
+    _close(tl, jl, _tol(jl))
+    assert tcache["pos"] == int(jcache["pos"]) == S - 1
+    keys = ("ckv", "kr") if cfg.family == "mla_moe" else ("k", "v")
+    assert set(tcache) == set(jcache) == {*keys, "pos"}
+    for key in keys:
+        assert tuple(tcache[key].shape) == jcache[key].shape
+        _close(tcache[key], jcache[key], _tol(jcache[key]))
+
+    last = {"tokens": batch["tokens"][..., -1:]}
+    jd, jcache = jmodel.decode(params, jcache, _to(last, "jax"))
+    td, tcache = tmodel.decode(tcache, _to(last, "torch"))
+    assert td.shape == (B, *heads, cfg.vocab)
+    _close(td, jd, _tol(jd))
+    assert tcache["pos"] == int(jcache["pos"]) == S
+    for key in keys:
+        _close(tcache[key], jcache[key], _tol(jcache[key]))
+    if "positions3" not in batch:
+        # decode at position S-1 gives the full forward's last logits (the
+        # reference's decode puts vlm tokens at (pos, pos, pos), which the
+        # grid of positions3 does not)
+        err = float((td - got[:, -1]).abs().max())
+        assert err < 1e-2 * (1 + float(got[:, -1].abs().max())), err
+
+
+@pytest.mark.parametrize("arch", ROUTED)
+def test_routing_matches_reference_in_prefill_and_decode(arch, monkeypatch):
+    """The experts every token-slot picks and the token-slots dropped, layer
+    by layer, in prefill and in a decode step at batch 2, at the config's
+    own capacity factor: exactly the reference's.  The reference runs its
+    layers unstacked and without remat, so its moe_forward runs eagerly and
+    tests/test_torch_moe.py's spy reads its routing.  Decode at batch 2
+    routes T = 2 tokens, cap 1: phi3.5-moe's smoke config (4 experts, top-2)
+    then drops slots in both packages."""
+    from test_torch_moe import _Spy
+
+    import repro.models.moe as REF_MOE
+    from repro_torch.models import moe as MOE
+
+    jmodel, params, tmodel = _pair(arch, scan_layers=False, remat=False)
+    cfg = tmodel.cfg
+    B, S = 2, 20
+    batch = _batch(cfg, B, S, seed=1)
+
+    def reference(fn):
+        spy = _Spy(("argsort", "concatenate", "take"))
+        with monkeypatch.context() as m:
+            m.setattr(REF_MOE, "jnp", spy)
+            out = fn()
+        routes = []
+        for (args, _), (_, offsets), (_, token_slot) in zip(
+                spy.calls["argsort"], spy.calls["concatenate"], spy.calls["take"][::3]):
+            flat_e = np.asarray(args[0])
+            counts = np.diff(np.append(np.asarray(offsets), flat_e.size))
+            token_slot = np.asarray(token_slot)
+            kept = token_slot[np.arange(token_slot.shape[1])[None] < counts[:, None]]
+            routes.append((flat_e.reshape(-1, cfg.top_k),
+                           np.setdiff1d(np.arange(flat_e.size), kept)))
+        return out, routes
+
+    def port(fn):
+        seen = []
+        real = MOE.route
+
+        def recorded(*args, **kw):
+            r = real(*args, **kw)
+            seen.append((r.top_e.numpy(), np.flatnonzero(~r.kept.numpy().reshape(-1))))
+            return r
+        with monkeypatch.context() as m:
+            m.setattr(MOE, "route", recorded)
+            out = fn()
+        return out, seen
+
+    (_, jcache), want = reference(
+        lambda: jmodel.prefill(params, _to(batch, "jax", S - 1), max_len=S))
+    (_, tcache), got = port(lambda: tmodel.prefill(_to(batch, "torch", S - 1), max_len=S))
+    last = {"tokens": batch["tokens"][..., -1:]}
+    _, want_dec = reference(lambda: jmodel.decode(params, jcache, _to(last, "jax")))
+    _, got_dec = port(lambda: tmodel.decode(tcache, _to(last, "torch")))
+    n_moe = cfg.n_layers - (cfg.family == "mla_moe")
+    assert len(want) == len(got) == len(want_dec) == len(got_dec) == n_moe
+    for (te, td), (we, wd) in zip(got + got_dec, want + want_dec):
+        np.testing.assert_array_equal(te, we)
+        np.testing.assert_array_equal(td, wd)
+    if cfg.family == "moe":
+        assert sum(d.size for _, d in got_dec) > 0     # decode drops, as in the reference
+
+
 def test_other_families_raise():
+    """Only xlstm is left to port."""
     for arch in ARCHS:
         cfg = get_config(arch, smoke=True)
-        if cfg.family not in ("dense", "hybrid"):
+        if cfg.family == "xlstm":
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 Model(cfg, device="cpu")

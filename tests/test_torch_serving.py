@@ -1,8 +1,9 @@
 """The slice as a whole: trigger-batched serving in the port against the
 JAX package's engine, on the CPU.
 
-Both engines serve the llama3.2-3b smoke config, and then the zamba2-1.2b
-(hybrid) smoke config, in fp32 with the same weights (the port loads the
+Both engines serve the llama3.2-3b smoke config, the zamba2-1.2b (hybrid)
+smoke config, and those of phi3.5-moe (moe), qwen2-vl-72b (vlm) and
+deepseek-v2 (mla_moe), in fp32 with the same weights (the port loads the
 reference's through ``params_from_jax``), six requests with seeded prompt
 lengths, three to a batch.  Greedy tokens are integers: they must be
 identical per request id.
@@ -12,6 +13,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
@@ -77,6 +79,29 @@ def test_port_serves_same_tokens_as_reference_hybrid():
     assert got == want
     for toks in got.values():
         assert len(toks) == 3 and all(0 <= t < port.cfg.vocab for t in toks)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "qwen2-vl-72b",
+                                  "deepseek-v2-236b"])
+def test_port_serves_same_tokens_as_reference_other_families(arch):
+    """The MoE's routing (deepseek-v2's smoke config decodes 3 tokens at
+    cap 1), Qwen2-VL's M-RoPE with its positions broadcast to (t, h, w),
+    and MLA's absorbed decode, through both engines."""
+    ref, port = _engines(arch=arch)
+    prompts = _prompts(seed=3)
+    want = _serve(ref, prompts)
+    got = _serve(port, prompts)
+    assert ref.batches == port.batches == 2
+    assert len(got) == 6
+    assert got == want
+
+
+def test_engine_refuses_the_audio_family():
+    """The engine batches [B, S] token prompts, as the reference's does;
+    musicgen's [B, K, S] codebook grids run at the model level."""
+    cfg = get_config("musicgen-large", smoke=True)
+    with pytest.raises(ValueError, match="model level"):
+        ServingEngine(cfg, Triggerflow(inline_functions=True, device="cpu"), "srv-audio")
 
 
 def test_each_batcher_runs_its_own_engine():
