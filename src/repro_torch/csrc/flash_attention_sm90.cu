@@ -1,11 +1,12 @@
 // flash_attention_sm90: causal / non-causal GQA attention forward on Hopper's
-// tensor cores, for bf16 q, k, v with D = Dv in {64, 128}.
+// tensor cores, for bf16 q, k, v with (D, Dv) one of (64, 64), (128, 128) and
+// (192, 128): D is the width of q and k, Dv that of v and o.
 //
 // Replaces the Pallas TPU kernel `flash_attention_bhsd`
 // (src/repro/kernels/flash_attention/flash_attention.py:78, kernel
 // `_flash_kernel`) on the bf16 prefill path; csrc/flash_attention.cu keeps
-// fp32 and every other head dim.  It computes the same function: online
-// softmax with the m, l and acc state in fp32, scale 1/sqrt(D), columns
+// fp32 and every other pair of head dims.  It computes the same function:
+// online softmax with the m, l and acc state in fp32, scale 1/sqrt(D), columns
 // masked with col < S and, when causal, row >= col; query head h reads kv
 // head h / (Hq / Hkv); the output is bf16.  One difference: the P.V product
 // runs on the bf16 tensor cores, where the TPU kernel keeps p = exp(s - m)
@@ -23,8 +24,10 @@
 // and at the serving prefill shapes these take longer at 989 TFLOP/s of
 // dense bf16 tensor cores than the q, k, v and o bytes take at 3.35 TB/s
 // (llama3.2-3b, B 4, S 1024, 24/8 heads, D 128: 0.0261 ms by operations;
-// zamba2-1.2b, 32/32 heads, D 64: 0.0200 ms).  So the design feeds the
-// tensor cores:
+// zamba2-1.2b, 32/32 heads, D 64: 0.0200 ms).  At deepseek-v2's expanded
+// MLA prefill (B 4, S 1024, 128/128 heads, D 192 = nope 128 + rope 64, Dv
+// 128) the 671 MB of q, k, v and o take 0.2003 ms and the 171.97 GFLOP
+// 0.1739 ms, so bytes bound it there.  So the design feeds the tensor cores:
 //  - Both products are wgmma m64nNk16 (bf16 in, fp32 accumulate).
 //    S = Q.K^T reads Q and K from shared memory (K-major); O += P.V takes P
 //    from registers (the S accumulator's layout is the A operand's, so p
@@ -41,14 +44,21 @@
 //    stage has a full and an empty mbarrier; at the start of tile j the
 //    thread refills the stage that tile j - 1 released with tile j + 1, so
 //    the next tile is in flight while both warpgroups compute on this one.
-//    A 64-column panel of 128 rows is one TMA box; D 128 is two panels, and
-//    every wgmma descriptor names the same 128-byte swizzle.  Shared
-//    memory: 160 KB at D 128, 80 KB at D 64.
+//    A 64-column panel of 128 rows (16 KB) is one TMA box; Q and K take
+//    D / 64 panels, V takes Dv / 64, and a stage's full barrier expects
+//    (D + Dv) / 64 panels of bytes.  Every wgmma descriptor names the same
+//    128-byte swizzle.  Shared memory: Q, then two stages of K and V, plus
+//    1 KB to align: 80 KB at (64, 64), 160 KB at (128, 128), and at
+//    (192, 128) 3 + 2 x (3 + 2) = 13 panels, 214 016 B of the card's
+//    232 448 B opt-in, one CTA an SM (a third stage would need 288 KB).
+//  - A wider D adds k-steps to S = Q.K^T only (12 of 16 at D 192, 8 at
+//    D 128): Q stays in shared memory, so the registers a thread holds are
+//    those of Dv: o is Dv / 2 fp32, s 64 fp32, p's two terms 32 + 32.
 //  - The softmax stays in registers: each row's m and l reduce over the
 //    four threads of its quad with shuffles, in the exp2 domain with
 //    log2(e) folded into the scale (ex2.approx, 2^-22 relative); acc is
 //    rescaled by alpha per tile.
-//  - At D 64 two CTAs share an SM (80 KB each, 128 registers a thread):
+//  - At (64, 64) two CTAs share an SM (80 KB each, 128 registers a thread):
 //    one CTA's loads, softmax and epilogue overlap the other's products,
 //    though ptxas serialises the wgmmas at that register count.
 //  - Causal: tiles above the diagonal are never loaded; only the diagonal
@@ -77,15 +87,15 @@ constexpr int kPanelBytes = kBN * kPanelCols * 2;    // 128 rows x 128 B = 16 KB
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
-  __nv_bfloat16* o;  // contiguous [B, S, Hq, D]
+  __nv_bfloat16* o;  // contiguous [B, S, Hq, Dv]
   int S, Hq, Hkv, causal;
   float scale_log2;  // log2(e) / sqrt(D)
 };
 
-template <int HD> constexpr int smem_bytes() {
+template <int HD, int HV> constexpr int smem_bytes() {
   // Q, then kStages K tiles, then kStages V tiles; 1 KB of slack to align
   // the first panel to the 1024-byte swizzle period
-  return (HD / kPanelCols) * (1 + 2 * kStages) * kPanelBytes + 1024;
+  return ((HD / kPanelCols) * (1 + kStages) + (HV / kPanelCols) * kStages) * kPanelBytes + 1024;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -233,9 +243,9 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], uint32_t a0, ui
 
 
 // O += P V for one k-step of 16 kv rows: a holds the four A registers.
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t* a, uint64_t dv) {
-  if constexpr (HD == 128)
+template <int HV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HV / 2], const uint32_t* a, uint64_t dv) {
+  if constexpr (HV == 128)
     wgmma_rs_m64n128(o, a[0], a[1], a[2], a[3], dv);
   else
     wgmma_rs_m64n64(o, a[0], a[1], a[2], a[3], dv);
@@ -253,19 +263,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int HD>
+// HD is the depth of Q.K^T (the width of q and k), HV the width of v and o.
+template <int HD, int HV>
 __global__ void __launch_bounds__(kThreads, HD == 64 ? 2 : 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tmap_q,
                const __grid_constant__ CUtensorMap tmap_k,
                const __grid_constant__ CUtensorMap tmap_v, const Params p) {
-  constexpr int kPanels = HD / kPanelCols;
-  constexpr int kTileBytes = kPanels * kPanelBytes;  // 128 rows of Q, K or V
+  constexpr int kPanelsK = HD / kPanelCols;            // of Q and of K
+  constexpr int kPanelsV = HV / kPanelCols;
+  constexpr int kPanelsMax = kPanelsK > kPanelsV ? kPanelsK : kPanelsV;
+  constexpr int kTileK = kPanelsK * kPanelBytes;       // 128 rows of Q or K
+  constexpr int kTileV = kPanelsV * kPanelBytes;       // 128 rows of V
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // q_full, full[], empty[]
 
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sK = sQ + kTileBytes;               // stage s at + s * kTileBytes
-  const uint32_t sV = sK + kStages * kTileBytes;
+  const uint32_t sK = sQ + kTileK;                   // stage s at + s * kTileK
+  const uint32_t sV = sK + kStages * kTileK;         // stage s at + s * kTileV
   const uint32_t q_full = smem_u32(&bars[0]);
   const uint32_t full0 = smem_u32(&bars[1]);         // stage s at + 8 * s
   const uint32_t empty0 = smem_u32(&bars[1 + kStages]);
@@ -294,17 +308,20 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tmap_q,
   auto load_kv = [&](int jt) {
     const int s = jt % kStages;
     if (jt >= kStages) mbar_wait(empty0 + 8 * s, (jt / kStages - 1) & 1);
-    mbar_expect_tx(full0 + 8 * s, 2 * kTileBytes);
-    for (int c = 0; c < kPanels; ++c) {
-      tma_load(sK + s * kTileBytes + c * kPanelBytes, &tmap_k, full0 + 8 * s,
-               c * kPanelCols, hk, jt * kBN, b);
-      tma_load(sV + s * kTileBytes + c * kPanelBytes, &tmap_v, full0 + 8 * s,
-               c * kPanelCols, hk, jt * kBN, b);
+    // the stage completes when all of its K and V bytes have landed
+    mbar_expect_tx(full0 + 8 * s, kTileK + kTileV);
+    for (int c = 0; c < kPanelsMax; ++c) {
+      if (c < kPanelsK)
+        tma_load(sK + s * kTileK + c * kPanelBytes, &tmap_k, full0 + 8 * s,
+                 c * kPanelCols, hk, jt * kBN, b);
+      if (c < kPanelsV)
+        tma_load(sV + s * kTileV + c * kPanelBytes, &tmap_v, full0 + 8 * s,
+                 c * kPanelCols, hk, jt * kBN, b);
     }
   };
   if (threadIdx.x == 0) {
-    mbar_expect_tx(q_full, kTileBytes);
-    for (int c = 0; c < kPanels; ++c)
+    mbar_expect_tx(q_full, kTileK);
+    for (int c = 0; c < kPanelsK; ++c)
       tma_load(sQ + c * kPanelBytes, &tmap_q, q_full, c * kPanelCols, h, q0, b);
     for (int jt = 0; jt < kStages - 1 && jt < n_kv; ++jt) load_kv(jt);
   }
@@ -316,9 +333,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tmap_q,
   const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
   const int r_lo = q0 + wg * 64 + (warp % 4) * 16 + g;
   const uint32_t sQ_wg = sQ + wg * 64 * 128;  // 64 rows of 128 B into each panel
-  float o[HD / 2];
+  float o[HV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HV / 2; ++i) o[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
   mbar_wait(q_full, 0);
 
@@ -327,7 +344,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tmap_q,
     __syncwarp();
     const int s = j % kStages;
     mbar_wait(full0 + 8 * s, (j / kStages) & 1);
-    const uint32_t sKs = sK + s * kTileBytes, sVs = sV + s * kTileBytes;
+    const uint32_t sKs = sK + s * kTileK, sVs = sV + s * kTileV;
 
     // S = Q K^T over HD / 16 k-steps; step kk is 32 bytes into panel kk / 4
     float sc[kBN / 2];
@@ -380,7 +397,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tmap_q,
       l_run[half] = l_run[half] * alpha[half] + sum;  // this thread's share; l sums fp32 p
     }
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+    for (int i = 0; i < HV / 2; ++i) o[i] *= alpha[(i / 2) % 2];
 
     // P to bf16 in the A-operand layout, as two terms: hi = bf16(p) and
     // lo = bf16(p - hi), so that hi + lo is p within 2^-16 of itself (p - hi
@@ -404,8 +421,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tmap_q,
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
       const uint64_t dv = sw128_desc(sVs + kk * 16 * 128, kPanelBytes, 1024);
-      wgmma_pv<HD>(o, p_hi + 4 * kk, dv);
-      wgmma_pv<HD>(o, p_lo + 4 * kk, dv);
+      wgmma_pv<HV>(o, p_hi + 4 * kk, dv);
+      wgmma_pv<HV>(o, p_lo + 4 * kk, dv);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -423,9 +440,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tmap_q,
     l = fmaxf(l, 1e-30f);
     const int row = r_lo + 8 * half;
     if (row >= p.S) continue;
-    __nv_bfloat16* orow = p.o + (((long long)b * p.S + row) * p.Hq + h) * HD + 2 * t4;
+    __nv_bfloat16* orow = p.o + (((long long)b * p.S + row) * p.Hq + h) * HV + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
+    for (int n = 0; n < HV / 8; ++n)
       *reinterpret_cast<uint32_t*>(orow + 8 * n) =
           pack_bf16(o[4 * n + 2 * half] / l, o[4 * n + 2 * half + 1] / l);
   }
@@ -476,14 +493,16 @@ int make_map(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B, int S, 
   return r == CUDA_SUCCESS ? 0 : kErrEncode + (int)r;
 }
 
-template <int HD>
+template <int HD, int HV>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                    const Params& p, dim3 grid, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<HD>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_sm90<HD>,
+  constexpr int smem = smem_bytes<HD, HV>();
+  static_assert(smem + sizeof(uint64_t) * (1 + 2 * kStages) <= 232448,
+                "dynamic and static shared memory past the card's 227 KB opt-in");
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_sm90<HD, HV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  flash_fwd_sm90<HD><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
+  flash_fwd_sm90<HD, HV><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
@@ -491,19 +510,22 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorM
 
 extern "C" {
 
-// q [B,S,Hq,D], k and v [B,S,Hkv,D], bf16, with unit stride on the last dim
-// and the given element strides of B, S and H, each a multiple of 8 (16
-// bytes), and 16-byte aligned bases; o contiguous [B,S,Hq,D]; D 64 or 128.
-// Launches on `stream` and returns cudaGetLastError() without synchronising,
-// or an error code of its own (flash_attention_sm90_error_string).
+// q [B,S,Hq,D], k [B,S,Hkv,D] and v [B,S,Hkv,Dv], bf16, with unit stride on
+// the last dim and the given element strides of B, S and H, each a multiple
+// of 8 (16 bytes), and 16-byte aligned bases; o contiguous [B,S,Hq,Dv];
+// (D, Dv) one of (64, 64), (128, 128) and (192, 128), else
+// cudaErrorInvalidValue.  Launches on `stream` and returns cudaGetLastError()
+// without synchronising, or an error code of its own
+// (flash_attention_sm90_error_string).
 int flash_attention_sm90_launch(const void* q, const void* k, const void* v, void* o,
-                                int B, int S, int Hq, int Hkv, int D,
+                                int B, int S, int Hq, int Hkv, int D, int Dv,
                                 long long qsb, long long qss, long long qsh,
                                 long long ksb, long long kss, long long ksh,
                                 long long vsb, long long vss, long long vsh,
                                 int causal, float scale, void* stream) {
   const int n_qt = (S + kBM - 1) / kBM;
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (D != 64 && D != 128) ||
+  const bool pair = (D == 64 && Dv == 64) || (D == 128 && Dv == 128) || (D == 192 && Dv == 128);
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || !pair ||
       (long long)B * Hq > 0x7fffffffLL || n_qt > 65535)
     return (int)cudaErrorInvalidValue;
   const EncodeTiledFn fn = encode_fn();
@@ -511,12 +533,14 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v, voi
   CUtensorMap tq, tk, tv;
   int e = make_map(fn, &tq, q, B, S, Hq, D, qsb, qss, qsh);
   if (e == 0) e = make_map(fn, &tk, k, B, S, Hkv, D, ksb, kss, ksh);
-  if (e == 0) e = make_map(fn, &tv, v, B, S, Hkv, D, vsb, vss, vsh);
+  if (e == 0) e = make_map(fn, &tv, v, B, S, Hkv, Dv, vsb, vss, vsh);
   if (e != 0) return e;
   const Params p{static_cast<__nv_bfloat16*>(o), S, Hq, Hkv, causal, scale * kLog2e};
   const dim3 grid(B * Hq, n_qt);
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(D == 128 ? launch<128>(tq, tk, tv, p, grid, s) : launch<64>(tq, tk, tv, p, grid, s));
+  if (D == 192) return (int)launch<192, 128>(tq, tk, tv, p, grid, s);
+  if (D == 128) return (int)launch<128, 128>(tq, tk, tv, p, grid, s);
+  return (int)launch<64, 64>(tq, tk, tv, p, grid, s);
 }
 
 const char* flash_attention_sm90_error_string(int err) {

@@ -49,7 +49,7 @@ _SIGNATURES = {
     ],
     "flash_attention_sm90": [
         ("flash_attention_sm90_launch", _I,
-         [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
           _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _P]),
         ("flash_attention_sm90_error_string", ctypes.c_char_p, [_I]),
     ],

@@ -4,12 +4,14 @@
 On CUDA tensors it launches one of two hand-written kernels, which ``route``
 picks from dtype and shape alone, before any launch:
 
-- ``"sm90"`` (``csrc/flash_attention_sm90.cu``): bf16 with D == Dv in
-  {64, 128}, the prefill attention of both served models.  wgmma tensor
-  cores and TMA loads; q, k and v must meet TMA's conditions
-  (``tma_check``), or the wrapper raises ``ValueError``.
+- ``"sm90"`` (``csrc/flash_attention_sm90.cu``): bf16 with (D, Dv) one of
+  ``SM90_HEAD_DIM_PAIRS``, (64, 64), (128, 128) and (192, 128): the prefill
+  attention of every served model, deepseek-v2's expanded MLA (D 192 =
+  nope 128 + rope 64, Dv 128) included.  wgmma tensor cores and TMA loads;
+  q, k and v must meet TMA's conditions (``tma_check``), or the wrapper
+  raises ``ValueError``.
 - ``"scalar"`` (``csrc/flash_attention.cu``): every other input (fp32, other
-  head dims, Dv != D), on the CUDA cores.
+  pairs of head dims), on the CUDA cores.
 
 No route falls back to another, and nothing falls back to the plain
 version: a refused input or a failed launch raises.  On CPU tensors
@@ -33,7 +35,7 @@ launches_scalar = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
-SM90_HEAD_DIMS = (64, 128)
+SM90_HEAD_DIM_PAIRS = frozenset({(64, 64), (128, 128), (192, 128)})  # (D, Dv)
 # each route's plain version: the arguments of flash_attention_torch
 PLAIN_ARGS = {"sm90": {"p_split": True, "block_k": SM90_BLOCK_K},
               "scalar": {}}
@@ -58,10 +60,9 @@ def _check(q, k, v) -> None:
 
 def route(q, k, v) -> str:
     """The kernel that ``flash_attention`` launches for q, k, v on CUDA,
-    from dtype and shape alone: ``"sm90"`` for bf16 with D == Dv in
-    {64, 128}, ``"scalar"`` for everything else."""
-    D, Dv = q.shape[-1], v.shape[-1]
-    if q.dtype == torch.bfloat16 and D == Dv and D in SM90_HEAD_DIMS:
+    from dtype and shape alone: ``"sm90"`` for bf16 with (D, Dv) in
+    ``SM90_HEAD_DIM_PAIRS``, ``"scalar"`` for everything else."""
+    if q.dtype == torch.bfloat16 and (q.shape[-1], v.shape[-1]) in SM90_HEAD_DIM_PAIRS:
         return "sm90"
     return "scalar"
 
@@ -111,18 +112,18 @@ def flash_attention_sm90(q, k, v, causal: bool = True) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention sm90: no kernel for device {q.device}")
     if route(q, k, v) != "sm90":
-        raise ValueError(f"flash_attention sm90: takes bf16 with D == Dv in "
-                         f"{SM90_HEAD_DIMS}, not {q.dtype} with D {q.shape[3]}, "
+        raise ValueError(f"flash_attention sm90: takes bf16 with (D, Dv) in "
+                         f"{sorted(SM90_HEAD_DIM_PAIRS)}, not {q.dtype} with D {q.shape[3]}, "
                          f"Dv {v.shape[3]}")
     tma_check(q, k, v)
     B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
-    out = torch.empty(B, S, Hq, D, dtype=q.dtype, device=q.device)
+    Hkv, Dv = k.shape[2], v.shape[3]
+    out = torch.empty(B, S, Hq, Dv, dtype=q.dtype, device=q.device)
     lib = _cuda.library("flash_attention_sm90")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_sm90_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, Hq, Hkv, D, *_tma_strides(q), *_tma_strides(k), *_tma_strides(v),
+            B, S, Hq, Hkv, D, Dv, *_tma_strides(q), *_tma_strides(k), *_tma_strides(v),
             int(causal), 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
     _cuda.check(err, lib, "flash_attention_sm90")
     launches += 1

@@ -4,9 +4,10 @@
 
 Prefill expands the latent into full keys [B,S,H,nope+rope] and values
 [B,S,H,v_dim] and runs causal attention over them: K2 on the card, whose
-scalar route takes D 192, Dv 128 (``layers.attention``).  Decode is the
-*absorbed* form, plain torch as it is plain jnp in the reference: W_uk is
-folded into the query and W_uv applied after the attention in latent space.
+sm90 route takes bf16 at D 192, Dv 128 and whose scalar route takes fp32
+(``layers.attention``).  Decode is the *absorbed* form, plain torch as it
+is plain jnp in the reference: W_uk is folded into the query and W_uv
+applied after the attention in latent space.
 """
 from __future__ import annotations
 

@@ -25,6 +25,10 @@ included), so the state and fp32 outputs differ by at most
 prefill on the card against the same weights on the CPU, at smoke size in
 fp32: their attention takes K2's scalar route on the card and the chunked
 plain path on the CPU, so logits and cache agree within 1e-4·(1 + max|cpu|).
+deepseek-v2 also prefills in bf16 at smoke depth with its published head
+dims (D 192 = nope 128 + rope 64, Dv 128): every layer takes K2's sm90
+route, and its output is held to the sm90 plain version on that layer's own
+inputs at the bf16 tolerance above.
 """
 import dataclasses
 import os
@@ -189,31 +193,38 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, Dv, dtype,
     assert ((got.float() - want).abs() <= tol).all()
 
 
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", [
-    (2, 64, 24, 8, 128, True),     # llama3.2-3b's heads, S below, at, past one tile
-    (2, 128, 24, 8, 128, True),
-    (2, 1000, 24, 8, 128, True),
-    (2, 1024, 24, 8, 128, True),
-    (2, 64, 32, 32, 64, True),     # zamba2-1.2b's heads
-    (2, 128, 32, 32, 64, True),
-    (2, 1000, 32, 32, 64, True),
-    (2, 1024, 32, 32, 64, True),
-    (2, 512, 16, 16, 128, True),   # MHA
-    (2, 512, 16, 1, 128, True),    # MQA
-    (2, 512, 24, 8, 128, False),   # non-causal
-    (2, 1000, 32, 32, 64, False),  # non-causal, ragged
-    (1, 40, 4, 2, 64, True),       # B 1, S below one tile
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,Dv,causal", [
+    (2, 64, 24, 8, 128, 128, True),     # llama3.2-3b's heads, S below, at, past one tile
+    (2, 128, 24, 8, 128, 128, True),
+    (2, 1000, 24, 8, 128, 128, True),
+    (2, 1024, 24, 8, 128, 128, True),
+    (2, 64, 32, 32, 64, 64, True),      # zamba2-1.2b's heads
+    (2, 128, 32, 32, 64, 64, True),
+    (2, 1000, 32, 32, 64, 64, True),
+    (2, 1024, 32, 32, 64, 64, True),
+    (2, 512, 16, 16, 128, 128, True),   # MHA
+    (2, 512, 16, 1, 128, 128, True),    # MQA
+    (2, 512, 24, 8, 128, 128, False),   # non-causal
+    (2, 1000, 32, 32, 64, 64, False),   # non-causal, ragged
+    (1, 40, 4, 2, 64, 64, True),        # B 1, S below one tile
+    (2, 64, 16, 16, 192, 128, True),    # deepseek-v2's MLA prefill: S below,
+    (2, 128, 16, 16, 192, 128, True),   # at and past one tile
+    (2, 1000, 16, 16, 192, 128, True),
+    (2, 1024, 128, 128, 192, 128, True),
+    (2, 1000, 16, 16, 192, 128, False),  # non-causal, ragged
+    (2, 512, 16, 4, 192, 128, True),    # GQA at D 192
+    (1, 40, 4, 2, 192, 128, True),      # B 1, S below one tile
 ])
-def test_flash_attention_sm90_matches_plain(cuda, B, S, Hq, Hkv, D, causal):
+def test_flash_attention_sm90_matches_plain(cuda, B, S, Hq, Hkv, D, Dv, causal):
     gen = torch.Generator(device=cuda).manual_seed(S + D)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
-               for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+               for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, Dv)))
     assert fa_ops.route(q, k, v) == "sm90"
     sm90, scalar = fa_ops.launches_sm90, fa_ops.launches_scalar
     got = fa_ops.flash_attention(q, k, v, causal=causal)
     assert (fa_ops.launches_sm90, fa_ops.launches_scalar) == (sm90 + 1, scalar)
     want = fa_ops.flash_attention_plain(q, k, v, causal=causal).float()
-    assert torch.isfinite(got).all() and got.shape == (B, S, Hq, D)
+    assert torch.isfinite(got).all() and got.shape == (B, S, Hq, Dv)
     assert ((got.float() - want).abs() <= 2.0 ** -7 * want.abs() + 1e-3).all()
 
 
@@ -377,3 +388,38 @@ def test_family_prefill_on_the_card_matches_the_cpu(cuda, arch):
     got, _ = card.decode(got_cache, {"tokens": tok.to(cuda)})
     want, _ = cpu.decode(want_cache, {"tokens": tok})
     close(got, want)
+
+
+def test_deepseek_prefill_in_bf16_takes_the_sm90_route(cuda):
+    """deepseek-v2 at smoke depth and width but with its published head
+    dims (nope 128 + rope 64, v 128), in bf16: every prefill layer launches
+    K2's sm90 route once and the scalar route never; the logits are finite,
+    and each layer's K2 output is within one bf16 flip of the sm90 plain
+    version on that layer's own inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, layers
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b", smoke=True), dtype=torch.bfloat16,
+                              head_dim=192, nope_head_dim=128, rope_head_dim=64,
+                              v_head_dim=128)
+    model = Model(cfg, device=cuda)
+    B, S = 2, 200
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (B, S)))
+    real, excess = layers.flash_attention, []
+
+    def checked(q, k, v, causal=True):
+        got = real(q, k, v, causal=causal)
+        want = fa_ops.flash_attention_plain(q, k, v, causal=causal).float()
+        excess.append(((got.float() - want).abs() - (2.0 ** -7 * want.abs() + 1e-3)).max())
+        return got
+
+    before = (fa_ops.launches_sm90, fa_ops.launches_scalar)
+    layers.flash_attention = checked
+    try:
+        logits, _ = model.prefill({"tokens": tokens.to(cuda)}, max_len=S + 2)
+    finally:
+        layers.flash_attention = real
+    assert (fa_ops.launches_sm90, fa_ops.launches_scalar) == (before[0] + cfg.n_layers,
+                                                              before[1])
+    assert torch.isfinite(logits.float()).all()
+    assert len(excess) == cfg.n_layers and max(x.item() for x in excess) <= 0

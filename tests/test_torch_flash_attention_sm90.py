@@ -27,13 +27,19 @@ from repro_torch.kernels.flash_attention.ref import (BLOCK_K, SM90_BLOCK_K,
                                                      flash_attention_torch)
 from repro_torch.models import layers
 
-SM90_CASES = [  # B, S, Hq, Hkv, D, causal
-    (1, 1000, 6, 2, 128, True),    # G 3 (as llama3.2-3b), ragged at 128
-    (1, 1000, 2, 2, 64, False),    # G 1 (as zamba2-1.2b), ragged, non-causal
-    (1, 1000, 3, 1, 64, True),     # G 3 at D 64, ragged
-    (2, 256, 3, 1, 128, False),    # G 3, non-causal, two full tiles
-    (1, 384, 4, 4, 64, True),      # G 1, causal
-    (2, 200, 2, 2, 128, True),     # G 1 at D 128, ragged
+SM90_CASES = [  # B, S, Hq, Hkv, D, Dv, causal
+    (1, 1000, 6, 2, 128, 128, True),    # G 3 (as llama3.2-3b), ragged at 128
+    (1, 1000, 2, 2, 64, 64, False),     # G 1 (as zamba2-1.2b), ragged, non-causal
+    (1, 1000, 3, 1, 64, 64, True),      # G 3 at D 64, ragged
+    (2, 256, 3, 1, 128, 128, False),    # G 3, non-causal, two full tiles
+    (1, 384, 4, 4, 64, 64, True),       # G 1, causal
+    (2, 200, 2, 2, 128, 128, True),     # G 1 at D 128, ragged
+    # deepseek-v2's expanded MLA: q and k of nope 128 + rope 64, v of 128
+    (1, 1000, 2, 2, 192, 128, True),    # G 1 (as deepseek-v2), ragged
+    (1, 1000, 2, 2, 192, 128, False),   # G 1, ragged, non-causal
+    (2, 256, 4, 4, 192, 128, False),    # G 1, non-causal, two full tiles
+    (1, 300, 6, 2, 192, 128, True),     # G 3, ragged
+    (2, 64, 2, 2, 192, 128, True),      # G 1, S below one tile
 ]
 
 
@@ -46,15 +52,15 @@ def _inputs(B, S, Hq, Hkv, D, Dv, dtype, seed):
     return arrs, [torch.from_numpy(a.astype(np.float32)).to(dtype) for a in arrs]
 
 
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", SM90_CASES)
-def test_sm90_plain_matches_pallas(B, S, Hq, Hkv, D, causal):
-    (qn, kn, vn), (q, k, v) = _inputs(B, S, Hq, Hkv, D, D, torch.bfloat16, S + D + Hq)
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,Dv,causal", SM90_CASES)
+def test_sm90_plain_matches_pallas(B, S, Hq, Hkv, D, Dv, causal):
+    (qn, kn, vn), (q, k, v) = _inputs(B, S, Hq, Hkv, D, Dv, torch.bfloat16, S + D + Hq)
     want = np.asarray(jax_flash(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn),
                                 causal=causal, interpret=True), np.float32)
     assert ops.route(q, k, v) == "sm90"
     got = flash_attention_torch(q, k, v, causal=causal, p_split=True,
                                 block_k=SM90_BLOCK_K)
-    assert got.shape == (B, S, Hq, D) and got.dtype == torch.bfloat16
+    assert got.shape == (B, S, Hq, Dv) and got.dtype == torch.bfloat16
     tol = 2.0 ** -7 * np.abs(want) + 2.0 ** -16 * np.abs(vn.astype(np.float32)).max()
     assert (np.abs(got.float().numpy() - want) <= tol).all()
     # on CPU tensors the wrapper runs the plain version of the route the
@@ -88,7 +94,11 @@ def test_p_split_off_is_unchanged():
     (torch.float32, 128, 128, "scalar"),
     (torch.bfloat16, 32, 32, "scalar"),
     (torch.bfloat16, 256, 256, "scalar"),
-    (torch.bfloat16, 192, 128, "scalar"),    # Dv != D
+    (torch.bfloat16, 192, 128, "sm90"),      # deepseek-v2's MLA prefill
+    (torch.float32, 192, 128, "scalar"),
+    (torch.bfloat16, 192, 192, "scalar"),    # only the pairs the kernel takes
+    (torch.bfloat16, 128, 192, "scalar"),
+    (torch.bfloat16, 192, 64, "scalar"),
     (torch.bfloat16, 128, 64, "scalar"),
 ])
 def test_route_rule(dtype, D, Dv, want):

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from repro.models import mla as REF
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import layers
 from repro_torch.models import mla as MLA
 
 B, D, H, QL, KVL, NOPE, ROPE, V = 2, 32, 4, 24, 16, 16, 8, 12
@@ -124,3 +126,26 @@ def test_decode_past_the_cache_clamps_in_the_reference_and_raises_in_the_port():
             with pytest.raises(ValueError, match="past the cache"):
                 MLA.mla_decode(p, torch.from_numpy(x), tckv, tkr, pos, NOPE, ROPE)
             assert np.array_equal(tckv.numpy(), ckv) and np.array_equal(tkr.numpy(), kr)
+
+
+def test_prefill_qkv_take_the_sm90_route(monkeypatch):
+    """The q, k and v that mla_forward hands to attention at deepseek-v2's
+    head dims (nope 128 + rope 64, v 128), in bf16, take K2's sm90 route and
+    meet its TMA conditions: torch.cat gives contiguous [B,S,H,192] q and k.
+    On the CPU attention calls attention_chunked where the card calls
+    flash_attention, with the same tensors."""
+    seen = []
+    real = layers.attention_chunked
+    monkeypatch.setattr(layers, "attention_chunked",
+                        lambda q, k, v, **kw: seen.append((q, k, v)) or real(q, k, v, **kw))
+    gen = torch.Generator().manual_seed(0)
+    d_model, heads, S = 64, 2, 24
+    p = MLA.MLA(gen, d_model, heads, q_lora=32, kv_lora=16)
+    x = torch.randn(B, S, d_model, generator=gen).to(torch.bfloat16)
+    out, _ = MLA.mla_forward(p, x, torch.arange(S))
+    (q, k, v), = seen
+    assert q.shape == k.shape == (B, S, heads, 192) and v.shape == (B, S, heads, 128)
+    assert q.dtype == k.dtype == v.dtype == torch.bfloat16
+    assert fa_ops.route(q, k, v) == "sm90"
+    fa_ops.tma_check(q, k, v)
+    assert out.shape == (B, S, d_model) and torch.isfinite(out.float()).all()
