@@ -39,7 +39,9 @@ decode ms a token and the device's busy share:
              serving shape; a misaligned view must raise; the plain version
              against the time recurrence; both timed at the prefill shape (no
              single PyTorch call computes the SSD scan, so there is no
-             yardstick);
+             yardstick); the gradients of ssd under autograd (the sm90
+             kernel forward, the plain backward) against those of the sm90
+             route's plain version at a small shape;
 5. join      the Table-1 join (100 triggers x 2000 events) through the port's
              Triggerflow, on the card and on the CPU in turns (card, CPU,
              CPU, card): 100 fires on each, through K1 on the worker's own
@@ -100,13 +102,13 @@ decode ms a token and the device's busy share:
              version at every layer's own inputs and the logits at every
              position with K2, with that plain version and with a wrong
              attention, as in phase 6;
-13. audio    musicgen-large at full width and depth (48 layers) at the model
+13. audio    musicgen-large at full width, 16 of its 48 layers, at the model
              level (the engine takes [B, S] prompts; these are [B, 4, S]
              codebook grids): 8 seeded prompts of 128-1024 frames, 4 to a
              batch, prefill and 16 greedy decode steps, K2's sm90 kernel (32
              heads of 64) on every prefill layer; the checks of phase 12 on
              the first batch;
-14. moe      phi3.5-moe at full width, 16 of its 32 layers: the 8 requests of
+14. moe      phi3.5-moe at full width, 8 of its 32 layers: the 8 requests of
              phase 6, K2's sm90 kernel (32/8 heads) on every prefill layer;
              the token-slots the MoE drops past an expert's capacity in a
              prefill and in each decode step; K2 against its plain version
@@ -123,13 +125,31 @@ decode ms a token and the device's busy share:
              version than to those with a wrong attention; the sm90 route's
              share of the prefill's device time; both K2 kernels timed at
              deepseek-v2's prefill shape (B 4, S 1024) beside their plain
-             versions and scaled_dot_product_attention.
+             versions and scaled_dot_product_attention;
+16. xlstm    xlstm-1.3b at full size (48 layers, sLSTM at 1, 9, ..., 41; no
+             kernel of K1-K3 behind it, and none may launch): the 8
+             requests; the sLSTM scans' share of a prefill's device time and
+             the cell steps they run; layer 0's chunked mLSTM against its
+             step recurrence and layer 1's sLSTM forward against its step-by-
+             step decode, on their own inputs in fp32;
+17. train    llama3.2-3b at full width and depth (bf16 parameters, fp32
+             moments, batch 8, seq 256, the copy task): the gradients with
+             K2 (its autograd Function: the sm90 kernel forward, a plain
+             backward) against those with the plain attention, a wrong one
+             and the plain one at another tile (the rounding floor); 5
+             steps of make_train_step, each profiled (loss, ms, tokens/s,
+             busy share, K2's launches and share, the plain backward's
+             share, peak memory); then the trigger-orchestrated run_training
+             at full width, 2 of 28 layers: 2 steps, then a new run on the
+             same workdir resumes at step 2 with the saved parameters bit
+             for bit; checkpoint save and restore timed.
 
 Each kernel's launch count is set to 0 just before the path that should
 launch it (phases 5, 6 and 7, and the fp32 forwards of 7 for the scalar
 kernels of K2 and K3; in phases 8-10, K1's count in the shard processes;
-each serving run, model-level run and fp32 check of phases 12-15) and read
-just after.  Earlier lines print JSON
+each serving run, model-level run and fp32 check of phases 12-15; the
+xlstm run of 16; the 5 train steps and the orchestrated runs of 17) and
+read just after.  Earlier lines print JSON
 results, the card's name and power limit and a "kernels" line; the last line
 is {"ok": true, "device": {...}}.  Those last lines come only once every
 process the phases started has ended (``stop_children``: shards a failed
@@ -543,6 +563,53 @@ def _ssd_inputs(B, S, H, P, N, dtype, seed):
     return x, dt, Bm, Cm, a
 
 
+def _ssd_grad_check():
+    """ssd through its autograd Function (K3's sm90 kernel forward, the
+    plain backward) against autograd through the sm90 route's plain
+    version, at a small shape (B 2, S 300, H 4, P = N = 64, bf16, chunk 64,
+    x a strided view), through y and the final state: each input's
+    gradient within 2**-6 in relative L2 (bf16 gradients; the plain
+    version splits its operands into two bf16 terms, the backward does
+    not), one launch and one backward call; an SSD without its state
+    between chunks must land farther."""
+    import torch
+
+    from repro_torch.kernels.ssd import ops
+
+    x, dt, Bm, Cm, a = _ssd_inputs(2, 300, 4, 64, 64, torch.bfloat16, 31)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    gy = torch.randn(x.shape, generator=gen, device="cuda")
+    gs = torch.randn(2, 4, 64, 64, generator=gen, device="cuda")
+    wide = torch.zeros(2, 300, 8, 64, device="cuda", dtype=torch.bfloat16)
+    wide[:, :, ::2] = x
+
+    def grads(fn):
+        w, *rest = (t.detach().clone().requires_grad_(True) for t in (wide, dt, Bm, Cm, a))
+        y, state = fn(w[:, :, ::2], *rest, 64)
+        ((y.float() * gy).sum() + (state * gs).sum()).backward()
+        return [w.grad[:, :, ::2], *(t.grad for t in rest)]
+
+    def rel(got, want):
+        return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+    launches, calls = ops.launches_sm90, ops.backward_calls
+    got = grads(ops.ssd)
+    if (ops.launches_sm90, ops.backward_calls) != (launches + 1, calls + 1):
+        raise AssertionError("ssd under autograd did not launch K3's sm90 kernel and its "
+                             "backward once each")
+    want = grads(ops.ssd_plain)
+    wrong = grads(lambda *args: _ssd_without_carry(*args, torch.float32))
+    names = ("x", "dt", "Bm", "Cm", "a")
+    errs = {n: rel(g, w) for n, g, w in zip(names, got, want)}
+    wrong_errs = {n: rel(g, w) for n, g, w in zip(names, wrong, want)}
+    if not max(errs.values()) <= 2.0 ** -6:
+        raise AssertionError(f"K3's gradients differ from the plain version's: {errs}")
+    if not max(wrong_errs.values()) > max(errs.values()):
+        raise AssertionError(f"an SSD without its carried state gives gradients as close "
+                             f"as K3's: {wrong_errs}")
+    return {"rel_l2": errs, "tolerance": 2.0 ** -6, "no_carry_rel_l2": wrong_errs}
+
+
 def phase_k3():
     import torch
 
@@ -604,7 +671,9 @@ def phase_k3():
     rec = max(ssd_excess(y, ry)[1], ssd_excess(state, rstate)[1])
     if not rec <= 0:
         raise AssertionError(f"ssd_scan_torch differs from the recurrence (excess {rec})")
-    emit(phase="k3", cases=results, misaligned_x=refused, plain_vs_recurrence_excess=rec)
+    grad = _ssd_grad_check()
+    emit(phase="k3", cases=results, misaligned_x=refused, plain_vs_recurrence_excess=rec,
+         grad_check=grad)
     # timing at the main path's shape: zamba2-1.2b's prefill of 4 prompts
     # padded to 1024 tokens, 64 heads of P = 64, N = 64, chunk 128; each
     # kernel beside its own plain version
@@ -699,13 +768,13 @@ def phase_join():
     return runs[0][3]
 
 
-def _serve(cfg, counters):
+def _serve(cfg, counters, profile=True):
     """Serve 8 seeded prompts of 128-1024 tokens, 4 to a batch, 16 new tokens
     each, through ServingEngine under KedaAutoscaler on the card.  Every
     counter of ``counters`` (name: (module, attribute)) is set to 0 just
     before the run and read just after.  Then time the first batch's prefill
-    and decode and
-    profile both.  Returns the run's numbers and what the checks need."""
+    and decode and, with ``profile``, profile both.  Returns the run's
+    numbers and what the checks need."""
     import numpy as np
     import torch
 
@@ -772,7 +841,7 @@ def _serve(cfg, counters):
     decode_ms = cuda_ms(decode_steps, 3, 1) / 16
     profiles = {"prefill": device_profile(
                     lambda: model.prefill({"tokens": tokens}, max_len=2048), 2, top=8),
-                "decode_16_steps": device_profile(decode_steps, 2, top=8)}
+                "decode_16_steps": device_profile(decode_steps, 2, top=8)} if profile else {}
     run = dict(arch=cfg.arch, params=cfg.param_count(), init_s=init_s, requests=8,
                batches=eng.batches, new_tokens=16, prompt_lens=[len(p) for p in prompts],
                wall_s=wall, tokens_per_s=8 * 16 / wall, prefill_ms_batch0=prefill_ms,
@@ -1303,9 +1372,11 @@ def phase_audio():
     from repro_torch.models import Model
 
     t0 = time.perf_counter()
+    # 16 of 48 layers: the script's time limit (phases 16-17 added about
+    # 170 s), not the card, sets this depth
     cfg, full = _full_width("musicgen-large", dict(
         family="audio", d_model=2048, n_heads=32, n_kv_heads=32, head_dim=64, d_ff=8192,
-        vocab=2048, codebooks=4), 48)
+        vocab=2048, codebooks=4), 16)
     K = cfg.codebooks
     model = Model(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
@@ -1371,9 +1442,10 @@ def phase_audio():
 
 def phase_moe():
     t0 = time.perf_counter()
+    # 8 of 32 layers, for the script's time (16 fit the card beside the checks)
     cfg, full = _full_width("phi3.5-moe-42b-a6.6b", dict(
         family="moe", d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128, d_ff=6400,
-        vocab=32064, n_experts=16, top_k=2, d_ff_expert=6400, capacity_factor=1.25), 16)
+        vocab=32064, n_experts=16, top_k=2, d_ff_expert=6400, capacity_factor=1.25), 8)
     run, model, tokens = _serve(cfg, _k2_counters())
     n = cfg.n_layers
     if run["launches"] != _want_k2(2 * n, "sm90"):
@@ -1464,6 +1536,475 @@ def phase_mla(k2_err):
                                                           bf16["layer_max_abs_err"])})
     return {"sm90": run["launches"]["launches_sm90"],
             "scalar_fp32": fp32["fp32_k2_launches"]["launches_scalar"], "timed": timed}
+
+
+# ---------------------------------------------------- xlstm and training ----
+def _all_counters():
+    """K1's, K2's and K3's launch counters (and K2's and K3's backward
+    calls), by name."""
+    from repro_torch.kernels.event_join import ops as k1_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    return {"k1": (k1_ops, "launches"), **{f"k2_{c}": (fa_ops, c) for c in COUNTERS},
+            **{f"k3_{c}": (ssd_ops, c) for c in COUNTERS},
+            "k2_backward_calls": (fa_ops, "backward_calls"),
+            "k3_backward_calls": (ssd_ops, "backward_calls")}
+
+
+RANGES = ("slstm_scan", "k2_plain_backward")   # this script's record_functions
+
+
+def _kernel_events(prof_events):
+    """The profile's device activities, without the spans that the
+    script's ranges leave on the device's timeline."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof_events if e.device_type == DeviceType.CUDA and e.name not in RANGES]
+
+
+def _range_ms(prof_events, name, iters):
+    """Device ms per call of the kernels launched inside every profiled
+    range called ``name`` (a record_function of this script's), and how
+    many device operations they were."""
+    from torch.autograd import DeviceType
+
+    ranges = [e for e in prof_events if e.name == name and e.device_type == DeviceType.CPU]
+    return (sum(e.device_time_total for e in ranges) / 1e3 / iters,
+            sum(len(e.kernels) + sum(len(c.kernels) for c in _cpu_descendants(e))
+                for e in ranges) / iters)
+
+
+def _cpu_descendants(event):
+    out, todo = [], list(event.cpu_children)
+    while todo:
+        e = todo.pop()
+        out.append(e)
+        todo.extend(e.cpu_children)
+    return out
+
+
+def _step_recurrence_check(layer, h, cfg):
+    """One layer's own input ``h`` [B,S,d] at full width, in fp32 (weights
+    and input cast): the chunked mLSTM against its step recurrence, or
+    slstm_forward against step-by-step slstm_decode → (max |difference|,
+    max |step output|)."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import xlstm as XL
+
+    h = h.float()
+    B, S, d = h.shape
+    if layer.slstm is not None:
+        p = copy.deepcopy(layer.slstm).float()
+        full = XL.slstm_forward(p, h, cfg.n_heads)
+        st = tuple(torch.zeros(B, cfg.n_heads, d // cfg.n_heads, device=h.device)
+                   for _ in range(3))
+        step = XL.slstm_decode
+    else:
+        p = copy.deepcopy(layer.mlstm).float()
+        full = XL.mlstm_forward(p, h, cfg.n_heads, cfg.mlstm_chunk)
+        Dh = cfg.ssm_expand * d // cfg.n_heads
+        st = (torch.zeros(B, cfg.n_heads, Dh, Dh, device=h.device),
+              torch.zeros(B, cfg.n_heads, Dh, device=h.device))
+        step = XL.mlstm_decode
+    outs = []
+    for t in range(S):
+        o, st = step(p, h[:, t:t + 1], st, cfg.n_heads)
+        outs.append(o)
+    want = torch.cat(outs, 1)
+    return (full - want).abs().max().item(), want.abs().max().item()
+
+
+def phase_xlstm():
+    """xlstm-1.3b at full size, served; no kernel of K1-K3 behind it."""
+    import torch
+
+    from repro_torch.models import xlstm as XL
+
+    t0 = time.perf_counter()
+    _drop_models()
+    cfg, full = _full_width("xlstm-1.3b", dict(
+        family="xlstm", d_model=2048, n_heads=4, ssm_expand=2, slstm_every=8,
+        mlstm_chunk=128, vocab=50304), 48)
+    slstm_layers = [i for i in range(cfg.n_layers) if cfg.is_slstm(i)]
+    if slstm_layers != [1, 9, 17, 25, 33, 41]:
+        raise AssertionError(f"xlstm-1.3b's sLSTM layers are {slstm_layers}")
+    # its prefill launches about 10**5 small kernels, most in the sLSTM
+    # scans, which the profiler takes long to read: the prefill and 16
+    # decode steps are profiled once each, below
+    run, model, tokens = _serve(cfg, _all_counters(), profile=False)
+    if any(run["launches"].values()):
+        raise AssertionError(f"the xlstm run launched a kernel of K1-K3: {run['launches']}")
+
+    # the sLSTM scans' share of one prefill's device time (each
+    # slstm_forward inside a profiled range of its own) and the cell steps
+    # they run
+    real_fwd, real_step = XL.slstm_forward, XL.slstm_cell_step
+    steps = []
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function("slstm_scan"):
+            return real_fwd(*args, **kw)
+
+    def counted(*args, **kw):
+        steps.append(1)
+        return real_step(*args, **kw)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    S = tokens.shape[1]
+    XL.slstm_forward, XL.slstm_cell_step = ranged, counted
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            model.prefill({"tokens": tokens}, max_len=2048)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        XL.slstm_forward, XL.slstm_cell_step = real_fwd, real_step
+    events = prof.events()
+    scan_ms, scan_ops = _range_ms(events, "slstm_scan", 1)
+    device_ms = sum(e.device_time_total for e in _kernel_events(events)) / 1e3
+    if len(steps) != len(slstm_layers) * S:
+        raise AssertionError(f"{len(steps)} sLSTM cell steps in a prefill of {S} tokens")
+
+    # layer 0 (an mLSTM) and layer 1 (an sLSTM) on their own inputs, in fp32
+    recurrences = {}
+    prefill = {"wall_ms": wall_ms, "device_ms": device_ms or None,
+               "device_ops": len(_kernel_events(events))}
+    logits, cache = model.prefill({"tokens": tokens}, max_len=2048)
+
+    def decode_steps():
+        c, t = dict(cache), logits.argmax(-1)[:, None]
+        for _ in range(16):
+            lg, c = model.decode(c, {"tokens": t})
+            t = lg.argmax(-1)[:, None]
+
+    run["profile"] = {"prefill": prefill, "decode_16_steps": device_profile(decode_steps, 1)}
+    run["busy_share"] = busy_share(run["profile"])
+    del logits, cache
+
+    with torch.no_grad():
+        x = model._embed({"tokens": tokens})
+        for i, kind in ((0, "mlstm"), (1, "slstm")):
+            lp = model.layers[i]
+            h = lp.norm(x)
+            err, scale = _step_recurrence_check(lp, h, cfg)
+            x = x + (XL.mlstm_forward(lp.mlstm, h, cfg.n_heads, cfg.mlstm_chunk)
+                     if lp.mlstm is not None else XL.slstm_forward(lp.slstm, h, cfg.n_heads))
+            # fp32 in another order: the chunked form sums over chunk pairs
+            # and D = 1024 where the recurrence accumulates the state step
+            # by step
+            tol = 1e-3 * (1 + scale)
+            recurrences[kind] = {"max_abs_err": err, "max_abs_out": scale, "tolerance": tol}
+            if not err <= tol:
+                raise AssertionError(f"xlstm-1.3b layer {i}: {kind} forward differs from its "
+                                     f"step recurrence by {err} > {tol}")
+    emit(phase="xlstm", depth=[cfg.n_layers, full],
+         slstm_layers=slstm_layers, prefill_S=S, prefill_slstm_steps=len(steps),
+         slstm_scan_device_ms=scan_ms, slstm_scan_device_ops=scan_ops,
+         slstm_share_of_prefill=scan_ms / device_ms if device_ms else None,
+         recurrence_checks_fp32=recurrences, **run, seconds=time.perf_counter() - t0)
+    del model
+    _drop_models()
+
+
+def _grads(model, batch):
+    """The loss's gradient of every parameter (the tensors autograd made,
+    then cleared from the parameters)."""
+    loss, _ = model.loss(batch)
+    loss.backward()
+    out = {}
+    for k, p in model.named_parameters():
+        out[k], p.grad = p.grad, None
+    return out
+
+
+def _grad_check(model, batch, tol):
+    """The gradients with K2 in the forward (its Function: the kernel
+    forward, the plain backward) against those with the sm90 route's plain
+    version in the forward (autograd through it); and, against the same,
+    the plain version with kv tiles of 64 (equally right: the rounding
+    floor) and a wrong (non-causal) attention.  Per leaf: the relative L2
+    error, and whether its gradient is non-zero.  Every leaf with a
+    non-zero gradient in the plain run must have one with K2 (and the
+    other way), wq, wk and wv of every layer among them; each leaf's error
+    within ``tol``; all leaves' within twice the floor's; the wrong
+    attention's farther than K2's."""
+    import functools
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    from repro_torch.models import layers
+
+    real = layers.flash_attention
+    plain = functools.partial(flash_attention_torch, **fa_ops.PLAIN_ARGS["sm90"])
+    variants = {
+        "plain": plain,
+        "kernel": real,
+        "plain_block64": functools.partial(flash_attention_torch, p_split=True, block_k=64),
+        "wrong": lambda q, k, v, causal=True: plain(q, k, v, causal=False)}
+    errs, nonzero, norms = {}, {}, {}
+    try:
+        for key, fn in variants.items():
+            layers.flash_attention = fn
+            grads = _grads(model, batch)
+            nonzero[key] = {k: bool((g != 0).any()) for k, g in grads.items()}
+            if key == "plain":
+                want = grads
+                continue
+            num = den = 0.0
+            errs[key] = {}
+            for k, g in grads.items():
+                d2 = (g.float() - want[k].float()).square().sum().item()
+                w2 = want[k].float().square().sum().item()
+                errs[key][k] = (d2 / w2) ** 0.5 if w2 else float(d2 > 0)
+                num, den = num + d2, den + w2
+            errs[key]["all"] = (num / den) ** 0.5
+            if key == "kernel":
+                norms = {k: [g.float().norm().item(), want[k].float().norm().item()]
+                         for k, g in grads.items() if k.startswith("layers.0.attn.w")}
+            del grads
+    finally:
+        layers.flash_attention = real
+    del want
+    torch.cuda.empty_cache()
+    lost = [k for k, nz in nonzero["plain"].items() if nz != nonzero["kernel"][k]]
+    if lost:
+        raise AssertionError(f"with K2 these leaves' gradients are zero where the plain "
+                             f"run's are not (or the other way): {lost}")
+    for name in ("wq", "wk", "wv"):
+        if not all(nonzero["kernel"][f"layers.{i}.attn.{name}"]
+                   for i in range(model.cfg.n_layers)):
+            raise AssertionError(f"no gradient reaches {name} through K2")
+    worst = max((e, k) for k, e in errs["kernel"].items() if k != "all")
+    if not worst[0] <= tol:
+        raise AssertionError(f"K2's gradient of {worst[1]} lies {worst[0]} from the plain "
+                             f"run's, over the tolerance {tol}")
+    # and, over all leaves, within twice the floor: a kernel that differs by
+    # rounding alone lands about as far as the plain version at another tile
+    if not errs["kernel"]["all"] <= 2 * errs["plain_block64"]["all"]:
+        raise AssertionError(f"K2's gradients lie {errs['kernel']['all']} from the plain "
+                             f"run's, over twice the rounding floor "
+                             f"{errs['plain_block64']['all']}")
+    if not errs["wrong"]["all"] > errs["kernel"]["all"]:
+        raise AssertionError(f"a wrong attention's gradients lie no farther from the plain "
+                             f"run's than K2's: {errs['wrong']['all']} <= "
+                             f"{errs['kernel']['all']}")
+    return {"tolerance": tol, "kernel_max_leaf_rel_l2": worst[0], "kernel_worst_leaf": worst[1],
+            "kernel_rel_l2_all": errs["kernel"]["all"],
+            "floor_block64_rel_l2_all": errs["plain_block64"]["all"],
+            "floor_block64_max_leaf_rel_l2": max(e for k, e in errs["plain_block64"].items()
+                                                 if k != "all"),
+            "wrong_rel_l2_all": errs["wrong"]["all"],
+            "wrong_min_leaf_rel_l2": min(e for k, e in errs["wrong"].items() if k != "all"),
+            "nonzero_leaves": sum(nonzero["kernel"].values()), "leaves": len(nonzero["kernel"]),
+            "layer0_qkv_grad_norm_kernel_vs_plain": norms}
+
+
+def _train_steps(model, data, n):
+    """``n`` steps of make_train_step on the copy task, each profiled:
+    loss, ms (host wall ending in a synchronize), tokens/s, the busy share,
+    K2's launches and share of the step's device time, the plain backward's
+    share (each call of K2's backward inside a profiled range of this
+    script's), peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import make_train_step
+
+    opt = AdamW()
+    step_fn = make_train_step(model, opt)
+    state = opt.init(dict(model.named_parameters()))
+    real_bwd = fa_ops.FlashAttentionFn.backward
+
+    def ranged(ctx, grad_out):
+        with torch.profiler.record_function("k2_plain_backward"):
+            return real_bwd(ctx, grad_out)
+
+    rows = []
+    fa_ops.FlashAttentionFn.backward = staticmethod(ranged)
+    try:
+        for i in range(n):
+            batch = {k: torch.from_numpy(v).long().cuda() for k, v in data.batch_at(i).items()}
+            torch.cuda.reset_peak_memory_stats()
+            launches, calls = fa_ops.launches_sm90, fa_ops.backward_calls
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            events = prof.events()
+            kernels = _kernel_events(events)
+            device_ms = sum(e.device_time_total for e in kernels) / 1e3
+            k2_ms = sum(e.device_time_total for e in kernels
+                        if KERNEL_NAMES["k2_sm90"] in e.name) / 1e3
+            bwd_ms, bwd_ops = _range_ms(events, "k2_plain_backward", 1)
+            by_name: dict = {}
+            for e in kernels:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+            tokens = batch["tokens"].numel()
+            rows.append({"step": i + 1, "loss": loss, "grad_norm": float(metrics["grad_norm"]),
+                         "ms": ms, "tokens_per_s": tokens / ms * 1e3,
+                         "device_ms": device_ms or None,
+                         "busy_share": device_ms / ms if device_ms else None,
+                         "k2_launches": fa_ops.launches_sm90 - launches,
+                         "k2_backward_calls": fa_ops.backward_calls - calls,
+                         "k2_device_ms": k2_ms,
+                         "k2_share": k2_ms / device_ms if device_ms else None,
+                         "plain_backward_device_ms": bwd_ms,
+                         "plain_backward_device_ops": bwd_ops,
+                         "plain_backward_share": bwd_ms / device_ms if device_ms else None,
+                         "device_ops": len(kernels),
+                         "top_ms": [[k[:80], v] for k, v in sorted(
+                             by_name.items(), key=lambda kv: -kv[1])[:6]],
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    finally:
+        fa_ops.FlashAttentionFn.backward = staticmethod(real_bwd)
+    del state
+    return rows
+
+
+def _orchestrated(cfg_full, tmp):
+    """run_training at full width, depth cut to 2 layers: 2 steps, then a
+    new run on the same workdir to step 4, which must resume at step 2 with
+    the saved parameters bit for bit; no K1 launch (the state machine's
+    triggers are not counting joins); save and restore timed."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.training import checkpoint as ckpt_lib
+    from repro_torch.training import trainer
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    n_params = cfg.param_count()
+    need = 2 * 12 * n_params + 4 * 2**30        # two checkpoints of fp32 params, m, v
+    workdir = tmp / "train"
+    free = shutil.disk_usage(tmp).free
+    if free < need:
+        raise AssertionError(f"the orchestrated training needs {need / 1e9:.1f} GB of disk "
+                             f"for two checkpoints, {free / 1e9:.1f} GB are free under {tmp}")
+    timed = {"save": [], "restore": []}
+    real_save, real_restore = ckpt_lib.save, ckpt_lib.restore
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        final = real_save(*args, **kw)
+        timed["save"].append([time.perf_counter() - t0, sum(
+            f.stat().st_size for f in Path(final).iterdir())])
+        return final
+
+    def timed_restore(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_restore(*args, **kw)
+        timed["restore"].append(time.perf_counter() - t0)
+        return out
+
+    restored = {}
+    real_ensure = trainer.TorchCluster.ensure_state
+
+    def ensure_state(self):
+        fresh = self.model is None
+        real_ensure(self)
+        if fresh:
+            restored["step"] = self.step
+            restored["params"] = {k: p.detach().cpu().clone()
+                                  for k, p in self.model.named_parameters()}
+
+    counters = _all_counters()
+    _zero(counters)
+    ckpt_lib.save, ckpt_lib.restore = timed_save, timed_restore
+    trainer.TorchCluster.ensure_state = ensure_state
+    try:
+        t0 = time.perf_counter()
+        first = trainer.run_training(cfg, str(workdir), total_steps=2, chunk_steps=2,
+                                     batch=8, seq=256, device="cuda")
+        saved = {k: p.detach().cpu() for k, p in
+                 first["cluster"].model.named_parameters()}
+        del first
+        _drop_models()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        second = trainer.run_training(cfg, str(workdir), total_steps=4, chunk_steps=2,
+                                      batch=8, seq=256, device="cuda")
+        second_s = time.perf_counter() - t0
+    finally:
+        ckpt_lib.save, ckpt_lib.restore = real_save, real_restore
+        trainer.TorchCluster.ensure_state = real_ensure
+    launches = _read(counters)
+    hist = second["history"]
+    status = second["workflow_result"]["status"]
+    same = all(torch.equal(restored["params"][k], t) for k, t in saved.items())
+    if not (status == "succeeded" and restored["step"] == 2 and hist[0]["step"] == 4
+            and same and ckpt_lib.latest_step(str(workdir)) == 4):
+        raise AssertionError(f"the orchestrated run did not resume at step 2 with the saved "
+                             f"parameters: status {status}, restored step "
+                             f"{restored['step']}, history {hist}, parameters equal {same}")
+    if launches["k1"]:
+        raise AssertionError(f"the training state machine launched K1 {launches['k1']} times")
+    del second, saved, restored
+    _drop_models()
+    shutil.rmtree(workdir)
+    return {"depth": [cfg.n_layers, cfg_full.n_layers], "params": n_params,
+            "first_run_s": first_s, "second_run_s": second_s, "history": hist,
+            "save_s_bytes": timed["save"], "restore_s": timed["restore"],
+            "launches": launches, "resumed_at": 2, "restored_params_equal_saved": True,
+            "disk_free_gb": free / 1e9}
+
+
+def phase_train(tmp):
+    """llama3.2-3b trained at full width and depth (28 layers, lm_head
+    untied): the gradient check, 5 steps of make_train_step on the copy task
+    (batch 8, seq 256, bf16 parameters, fp32 moments), then the
+    trigger-orchestrated loop at 2 of 28 layers."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.training.data import SyntheticData
+
+    t0 = time.perf_counter()
+    _drop_models()
+    cfg = get_config("llama3.2-3b")
+    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab) != (28, 3072, 24, 8, 128, 8192, 128256):
+        raise AssertionError(f"llama3.2-3b is not at full width: {cfg}")
+    model = Model(cfg, device="cuda", seed=0)
+    model.requires_grad_(True)
+    data = SyntheticData(cfg.vocab, 256, 8, kind="copy_task", seed=0)
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in data.batch_at(0).items()}
+    # bf16 gradients through 28 layers: the attention's rounding differs
+    # between K2 and its plain version in some outputs of every layer
+    checks = _grad_check(model, batch, tol=5e-2)
+    counters = _all_counters()
+    _zero(counters)
+    steps = _train_steps(model, data, 5)
+    launches = _read(counters)
+    if launches["k2_launches_sm90"] != 5 * cfg.n_layers or launches["k1"] or \
+            launches["k2_backward_calls"] != 5 * cfg.n_layers:
+        raise AssertionError(f"launches in 5 train steps: {launches}; want K2's sm90 route "
+                             f"and its backward once a layer a step, no K1")
+    if not all(torch.isfinite(torch.tensor(r["loss"])) for r in steps):
+        raise AssertionError(f"llama3.2-3b: a train step's loss is not finite: {steps}")
+    del model
+    _drop_models()
+    orchestrated = _orchestrated(cfg, tmp)
+    emit(phase="train", arch=cfg.arch, params=cfg.param_count(), batch=8, seq=256,
+         grad_check=checks, steps=steps, launches=launches, orchestrated=orchestrated,
+         seconds=time.perf_counter() - t0)
+    return {"train": launches["k2_launches_sm90"],
+            "train_orchestrated": orchestrated["launches"]["k2_launches_sm90"]}
 
 
 # ------------------------------------------------------ child processes ----
@@ -2062,7 +2603,7 @@ def main() -> int:
 
 
 def run_phases(torch) -> list:
-    """Phases 1-15; returns the lines that end the output (the kernels line,
+    """Phases 1-17; returns the lines that end the output (the kernels line,
     the card's name and power limit, the result), printed once every process
     the phases started has ended."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2091,13 +2632,18 @@ def run_phases(torch) -> list:
                         ("deepseek-v2-236b", lambda: phase_mla(
                             {route: k2[route]["max_abs_err"] for route in k2}))):
         families[name] = phase()
+    phase_xlstm()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
+        train = phase_train(Path(tmp))
     emit(phase="total", seconds=time.perf_counter() - t_start)
     mla = families["deepseek-v2-236b"]
     sm90_paths = {"llama3.2-3b": k2_launches, "zamba2-1.2b": hybrid["k2_sm90"],
                   "qwen2-vl-72b": families["qwen2-vl-72b"],
                   "musicgen-large": families["musicgen-large"],
                   "phi3.5-moe-42b-a6.6b": families["phi3.5-moe-42b-a6.6b"]["sm90"],
-                  "deepseek-v2-236b": mla["sm90"]}
+                  "deepseek-v2-236b": mla["sm90"],
+                  "train": train["train"],
+                  "train_orchestrated": train["train_orchestrated"]}
     # the scalar route serves no path since deepseek-v2 took the sm90 route:
     # its launches are the fp32 logit checks'
     scalar_paths = {"zamba2-1.2b fp32": hybrid["k2_scalar"],

@@ -19,6 +19,14 @@ version: a refused input or a failed launch raises.  On CPU tensors
 take on the card (``flash_attention_plain``).  ``launches`` counts the
 launches of both kernels, ``launches_sm90`` and ``launches_scalar`` each
 route's.
+
+On the card the kernel runs inside ``FlashAttentionFn``, an autograd
+Function: its forward is the route's kernel, its backward recomputes the
+JAX package's ``attention_chunked`` in plain torch from the saved q, k, v
+and backpropagates through it (the JAX package has no backward kernel; its
+train step differentiates plain jnp).  ``backward_calls`` counts those
+backward passes.  Without autograd (serving) the forward is the same one
+launch.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from .ref import SM90_BLOCK_K, flash_attention_torch
 launches = 0
 launches_sm90 = 0
 launches_scalar = 0
+backward_calls = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
@@ -162,15 +171,42 @@ def flash_attention_scalar(q, k, v, causal: bool = True) -> torch.Tensor:
     return out
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """``kernel(q, k, v, causal=causal)`` forward, plain torch backward:
+    the JAX package's ``attention_chunked`` recomputed from the saved
+    inputs.  ``kernel`` is an argument, so a CPU test can pass a plain
+    version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, kernel):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return kernel(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        global backward_calls
+        from ...models.layers import attention_chunked
+
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            out = attention_chunked(*inputs, causal=ctx.causal)
+            grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad],
+                                             grad_out))
+        backward_calls += 1
+        return (*(next(grads) if n else None for n in need), None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q [B,S,Hq,D], k [B,S,Hkv,D], v [B,S,Hkv,Dv] → [B,S,Hq,Dv] in q's
-    dtype; query head h reads kv head h // (Hq // Hkv)."""
+    dtype; query head h reads kv head h // (Hq // Hkv).  Differentiable:
+    on the card through ``FlashAttentionFn``, on the CPU as plain torch."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if route(q, k, v) == "sm90":
-        return flash_attention_sm90(q, k, v, causal=causal)
-    return flash_attention_scalar(q, k, v, causal=causal)
+    kernel = flash_attention_sm90 if route(q, k, v) == "sm90" else flash_attention_scalar
+    return FlashAttentionFn.apply(q, k, v, causal, kernel)

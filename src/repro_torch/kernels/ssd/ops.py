@@ -21,6 +21,13 @@ take on the card (``ssd_plain``).  This is the one place the model's SSD
 picks its device.  ``launches`` counts the calls that launched either
 route, ``launches_sm90`` and ``launches_scalar`` each route's; one sm90
 call launches three CUDA kernels and counts as one.
+
+On the card the kernel runs inside ``SSDFn``, an autograd Function: its
+forward is the route's kernel, its backward recomputes ``ssd_scan_torch``
+(without the two-term split) in plain torch from the saved inputs and
+backpropagates through it (the JAX package has no backward kernel).
+``backward_calls`` counts those backward passes.  Without autograd
+(serving) the forward is the same one launch.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from .ref import ssd_scan_torch
 launches = 0
 launches_sm90 = 0
 launches_scalar = 0
+backward_calls = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232_448    # bytes of shared memory a block may opt into on sm_90
@@ -191,17 +199,45 @@ def ssd_scalar(x, dt, Bm, Cm, a, chunk: int = 128,
     return y, state
 
 
+class SSDFn(torch.autograd.Function):
+    """``kernel(x, dt, Bm, Cm, a, chunk, decay_dtype)`` forward, plain torch
+    backward: ``ssd_scan_torch`` recomputed from the saved inputs.
+    ``kernel`` is an argument, so a CPU test can pass a plain version."""
+
+    @staticmethod
+    def forward(ctx, x, dt, Bm, Cm, a, chunk, decay_dtype, kernel):
+        ctx.save_for_backward(x, dt, Bm, Cm, a)
+        ctx.chunk, ctx.decay_dtype = chunk, decay_dtype
+        ctx.set_materialize_grads(False)     # an unused output's gradient stays None
+        return kernel(x, dt, Bm, Cm, a, chunk, decay_dtype)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        global backward_calls
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            outs = ssd_scan_torch(*inputs, ctx.chunk, decay_dtype=ctx.decay_dtype)
+            pairs = [(o, g) for o, g in zip(outs, (grad_y, grad_state)) if g is not None]
+            grads = iter(torch.autograd.grad([o for o, _ in pairs],
+                                             [t for t in inputs if t.requires_grad],
+                                             [g for _, g in pairs], allow_unused=True))
+        backward_calls += 1
+        return (*(next(grads) if n else None for n in need), None, None, None)
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         a: torch.Tensor, chunk: int = 128, decay_dtype: torch.dtype = torch.float32):
     """x [B,S,H,P], dt [B,S,H], Bm/Cm [B,S,N] (shared across heads), a [H]
     → (y [B,S,H,P] in x's dtype, state [B,H,N,P] fp32), in chunks of
     min(chunk, S) steps.  ``decay_dtype`` is the plain version's (see
-    ``ssd_scan_torch``); the kernels compute their decay in fp32 only."""
+    ``ssd_scan_torch``); the kernels compute their decay in fp32 only.
+    Differentiable: on the card through ``SSDFn``, on the CPU as plain
+    torch."""
     _check(x, dt, Bm, Cm, a)
     if x.device.type == "cpu":
         return ssd_plain(x, dt, Bm, Cm, a, chunk, decay_dtype=decay_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {x.device}")
-    if route(x, Bm) == "sm90":
-        return ssd_sm90(x, dt, Bm, Cm, a, chunk, decay_dtype)
-    return ssd_scalar(x, dt, Bm, Cm, a, chunk, decay_dtype)
+    kernel = ssd_sm90 if route(x, Bm) == "sm90" else ssd_scalar
+    return SSDFn.apply(x, dt, Bm, Cm, a, chunk, decay_dtype, kernel)

@@ -3,9 +3,10 @@
     python -m repro_torch.launch.serve --arch llama3.2-3b --requests 8
     python -m repro_torch.launch.serve --arch llama3.2-3b --smoke --device cpu
     python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --device cpu
 
 Every family but ``audio`` (musicgen-large, whose prompts are [K, S]
-codebook grids: the engine refuses it) and ``xlstm`` (not ported) serves.
+codebook grids: the engine refuses it) serves.
 """
 from __future__ import annotations
 

@@ -15,20 +15,25 @@ mla_moe DeepSeek-V2: MLA attention (``models.mla``) + shared and routed
 hybrid  zamba2: a Mamba2 backbone (``models.ssm``) with one weight-shared
         attention block applied before every ``attn_every``-th layer to
         concat(x, embeddings) through a per-site projection
+xlstm   mLSTM blocks with an sLSTM block at every layer i with
+        i % slstm_every == 1 (``models.xlstm``); attention-free, its decode
+        state O(1) in the sequence length
 
 The reference scans uniform stacks over params stacked on axis 0; here that
 axis is split into a ``ModuleList``, so ``layers.{i}.attn.wq`` is the
 reference's ``layers/attn/wq[i]``; mla_moe's unstacked ``layer0`` keeps its
 name, and its stack ``layers.{i}`` is the reference's layer i + 1.  The
-hybrid's ``layers/l{i}`` and ``shared_proj/s{i}`` are ``layers.{i}`` and
-``shared_proj.{i}`` (``models.convert.params_from_jax``).  ``xlstm``
-raises ``NotImplementedError`` (ROADMAP.md, open item 1).
+hybrid's and xlstm's ``layers/l{i}`` and the hybrid's ``shared_proj/s{i}``
+are ``layers.{i}`` and ``shared_proj.{i}`` (``models.convert.params_from_jax``).
 
 Weights are drawn on ``device`` from a ``torch.Generator`` seeded with
 ``seed``; they are bf16 whatever ``cfg.dtype`` is, as in the reference.
-``prefill`` and ``decode`` run without autograd.  ``decode`` writes the
-attention K/V into the cache's tensors in place and returns new SSM and
-conv states, so a prefill cache can be decoded from more than once.
+``prefill`` and ``decode`` run without autograd; ``forward`` and ``loss``
+run with it where the parameters require gradients, which the trainer
+turns on (``training.train_step``) and serving leaves off.  ``decode``
+writes the attention K/V into the cache's tensors in place and returns new
+SSM, conv and xLSTM states, so a prefill cache can be decoded from more
+than once.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
 from . import ssm as SSM
+from . import xlstm as XL
 from .common import make_param
 
 
@@ -107,6 +113,10 @@ class ModelConfig:
     def supports_long_context(self) -> bool:
         return self.family in ("hybrid", "xlstm")
 
+    def is_slstm(self, i: int) -> bool:
+        """Whether xlstm's layer i is an sLSTM block (else mLSTM)."""
+        return bool(self.slstm_every) and i % self.slstm_every == 1
+
     def shared_sites(self):
         """Layers before which the hybrid's shared attention block runs."""
         if not self.attn_every:
@@ -132,6 +142,14 @@ class ModelConfig:
                + d * self.rope_head_dim + H * self.v_head_dim * d)
         books = self.codebooks if fam == "audio" else 1
         outer = 2 * books * self.vocab * d + d               # embed, lm_head/heads, final_norm
+        if fam == "xlstm":
+            di, H = self.ssm_expand * d, self.n_heads
+            Dh, dh = di // H, d // H
+            mlstm = (d * 2 * di + 3 * H * Dh * Dh            # w_up; wq, wk, wv
+                     + 2 * di * H + H + di + di * d)         # wi, wf, f_bias, out_norm, w_down
+            slstm = d * 4 * d + H * dh * 4 * dh + 4 * d + d + d * d   # wx, r, bias, out_norm, wo
+            n_s = sum(map(self.is_slstm, range(self.n_layers)))
+            return outer + self.n_layers * d + n_s * slstm + (self.n_layers - n_s) * mlstm
         if fam in ("dense", "vlm", "audio"):
             return outer + self.n_layers * (norms + gqa + mlp(self.d_ff))
         if fam == "moe":
@@ -151,14 +169,14 @@ class ModelConfig:
 
 # the families whose layers are GQA attention with a K/V cache
 GQA_FAMILIES = ("dense", "vlm", "audio", "moe")
-PORTED_FAMILIES = GQA_FAMILIES + ("mla_moe", "hybrid")
+PORTED_FAMILIES = GQA_FAMILIES + ("mla_moe", "hybrid", "xlstm")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.arch}) is not ported yet; "
-            f"the port runs {PORTED_FAMILIES} (ROADMAP.md, open item 1)")
+            f"model family {cfg.family!r} ({cfg.arch}) is not one of the port's "
+            f"{PORTED_FAMILIES}")
 
 
 class Layer(nn.Module):
@@ -195,6 +213,18 @@ class MambaLayer(nn.Module):
                                 cfg.ssm_state, cfg.ssm_headdim, device=device)
 
 
+class XLSTMLayer(nn.Module):
+    """A pre-norm residual xLSTM block: ``norm`` then ``slstm`` or
+    ``mlstm``, the other ``None``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, slstm: bool, device=None):
+        super().__init__()
+        self.norm = L.RMSNorm(cfg.d_model, device)
+        self.slstm = XL.SLSTM(gen, cfg.d_model, cfg.n_heads, device) if slstm else None
+        self.mlstm = None if slstm else XL.MLSTM(gen, cfg.d_model, cfg.n_heads,
+                                                 cfg.ssm_expand, device)
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
         super().__init__()
@@ -218,6 +248,9 @@ class Model(nn.Module):
             self.layer0 = Layer(cfg, gen, device, mla=True, d_ff=cfg.d_ff_expert * 8)
             self.layers = nn.ModuleList(Layer(cfg, gen, device, mla=True, moe=True)
                                         for _ in range(cfg.n_layers - 1))
+        elif fam == "xlstm":
+            self.layers = nn.ModuleList(XLSTMLayer(cfg, gen, cfg.is_slstm(i), device)
+                                        for i in range(cfg.n_layers))
         else:
             # zamba2: one attention block whose weights every site shares, a
             # [2d, d] projection of concat(x, embeddings) per site
@@ -329,6 +362,8 @@ class Model(nn.Module):
                     cache[names[0]][i, :, :S] = a
                     cache[names[1]][i, :, :S] = b
             return x, aux_total
+        if cfg.family == "xlstm":
+            return self._xlstm_layers(x, cache), aux_total
         x0 = x
         sites = cfg.shared_sites()
         for i, lp in enumerate(self.layers):
@@ -350,6 +385,27 @@ class Model(nn.Module):
                 x = x + out
         return x, aux_total
 
+    def _xlstm_layers(self, x, cache=None):
+        """xlstm's blocks over the full sequence; with ``cache``, write each
+        mLSTM layer's final (C, n) and each sLSTM layer's (h, c, n)."""
+        cfg = self.cfg
+        mi = si = 0
+        for lp in self.layers:
+            h = lp.norm(x)
+            if lp.slstm is not None:
+                out, state = XL.slstm_forward(lp.slstm, h, cfg.n_heads, return_state=True)
+                if cache is not None:
+                    cache["s_h"][si] = torch.stack(state)
+                si += 1
+            else:
+                out, (C, n) = XL.mlstm_forward(lp.mlstm, h, cfg.n_heads, cfg.mlstm_chunk,
+                                               return_state=True)
+                if cache is not None:
+                    cache["C"][mi], cache["n"][mi] = C, n
+                mi += 1
+            x = x + out
+        return x
+
     # ------------------------------------------------------------ forward ----
     def forward(self, batch: Dict[str, torch.Tensor]):
         """Full-sequence forward → (logits [B,S,V] fp32 (audio: [B,S,K,V]),
@@ -359,10 +415,38 @@ class Model(nn.Module):
         x, aux = self._layers(x, cos, sin)
         return self._unembed(x), aux
 
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """Next-token NLL over the targets >= 0 (audio's targets [B,K,S] are
+        transposed to the logits' [B,S,K]), plus 0.01 times the MoE aux loss
+        → (loss, {"nll", "aux"}), as the reference's ``Model.loss``."""
+        logits, aux = self.forward(batch)
+        targets = batch["targets"]
+        if self.cfg.family == "audio":
+            targets = targets.permute(0, 2, 1)
+        mask = (targets >= 0).float()
+        tgt = targets.clamp(min=0).long()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return loss + 0.01 * aux, {"nll": loss, "aux": aux}
+
     # ------------------------------------------------------- prefill/decode ----
     def init_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
         cfg = self.cfg
         dev = self.embed.device
+        if cfg.family == "xlstm":
+            # O(1) in the length: max_len is not used
+            di = cfg.ssm_expand * cfg.d_model
+            H = cfg.n_heads
+            Dh, dh = di // H, cfg.d_model // H
+            n_s = sum(map(cfg.is_slstm, range(cfg.n_layers)))
+            n_m = cfg.n_layers - n_s
+            f32 = torch.float32
+            return {"C": torch.zeros(n_m, batch_size, H, Dh, Dh, dtype=f32, device=dev),
+                    "n": torch.zeros(n_m, batch_size, H, Dh, dtype=f32, device=dev),
+                    "s_h": torch.zeros(max(n_s, 1), 3, batch_size, H, dh, dtype=f32,
+                                       device=dev),
+                    "pos": 0}
         if cfg.family in GQA_FAMILIES:
             kv = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
             return {"k": torch.zeros(kv, dtype=cfg.dtype, device=dev),
@@ -389,7 +473,8 @@ class Model(nn.Module):
         """Forward over the prompt → (last-position logits [B,V] fp32
         (audio: [B,K,V]), cache holding the prompt's K/V (mla_moe: latent
         and RoPE key) at positions [0, S) and, for the hybrid, the Mamba2
-        states after it)."""
+        states after it; xlstm's holds its layers' states after the prompt
+        and ignores ``max_len``)."""
         tokens = batch["tokens"]
         B, S = tokens.shape[0], tokens.shape[-1]
         cache = self.init_cache(B, max_len or S)
@@ -406,10 +491,28 @@ class Model(nn.Module):
         """One decode step: batch['tokens'] [B,1] (audio: [B,K,1]) →
         (logits [B,V] fp32 (audio: [B,K,V]), cache with ``pos`` advanced).
         The cache's K/V (latent) tensors are updated in place; the hybrid's
-        SSM and conv states come back as new tensors."""
+        SSM and conv states and xlstm's states come back as new tensors."""
         cfg = self.cfg
         pos = cache["pos"]
         x = self._embed(batch)
+        if cfg.family == "xlstm":
+            Cs, ns, shs = [], [], []
+            for lp in self.layers:
+                h = lp.norm(x)
+                if lp.slstm is not None:
+                    out, st = XL.slstm_decode(lp.slstm, h, tuple(cache["s_h"][len(shs)]),
+                                              cfg.n_heads)
+                    shs.append(torch.stack(st))
+                else:
+                    out, (C, n) = XL.mlstm_decode(lp.mlstm, h, (cache["C"][len(Cs)],
+                                                                cache["n"][len(Cs)]),
+                                                  cfg.n_heads)
+                    Cs.append(C)
+                    ns.append(n)
+                x = x + out
+            return self._unembed(x)[:, -1], {
+                "C": torch.stack(Cs), "n": torch.stack(ns),
+                "s_h": torch.stack(shs) if shs else cache["s_h"], "pos": pos + 1}
         if cfg.family == "mla_moe":
             for i, lp in enumerate(self._mla_layers()):
                 h, _, _ = MLA.mla_decode(lp.attn, lp.ln1(x), cache["ckv"][i], cache["kr"][i],

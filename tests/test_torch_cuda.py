@@ -423,3 +423,126 @@ def test_deepseek_prefill_in_bf16_takes_the_sm90_route(cuda):
                                                               before[1])
     assert torch.isfinite(logits.float()).all()
     assert len(excess) == cfg.n_layers and max(x.item() for x in excess) <= 0
+
+
+# ------------------------------------------------- K2 and K3 under autograd ----
+def _rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _leaves(*tensors):
+    return [t.detach().clone().requires_grad_(True) for t in tensors]
+
+
+@pytest.mark.parametrize("route,dtype,D,Dv,causal", [
+    ("sm90", torch.bfloat16, 128, 128, True),
+    ("sm90", torch.bfloat16, 64, 64, False),
+    ("sm90", torch.bfloat16, 192, 128, True),
+    ("scalar", torch.float32, 64, 64, True),
+    ("scalar", torch.bfloat16, 32, 32, True),
+])
+def test_flash_attention_gradients_through_the_function(cuda, route, dtype, D, Dv, causal):
+    """K2 forward, plain backward: one launch and one backward call; the
+    gradients equal autograd through attention_chunked (which the backward
+    recomputes) within 1e-6 relative L2, and autograd through the route's
+    plain version within 2**-6 in bf16 (bf16 gradients, another rounding of
+    the forward's intermediates) and 1e-4 in fp32."""
+    gen = torch.Generator(device=cuda).manual_seed(D + Dv)
+    B, S, Hq, Hkv = 2, 300, 8, 2
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, Dv)))
+    g = torch.randn(B, S, Hq, Dv, generator=gen, device=cuda).to(dtype)
+    assert fa_ops.route(q, k, v) == route
+    leaves = _leaves(q, k, v)
+    launches, calls = fa_ops.launches, fa_ops.backward_calls
+    fa_ops.flash_attention(*leaves, causal=causal).backward(g)
+    assert (fa_ops.launches, fa_ops.backward_calls) == (launches + 1, calls + 1)
+
+    from repro_torch.models.layers import attention_chunked
+
+    chunked = _leaves(q, k, v)
+    attention_chunked(*chunked, causal=causal).backward(g)
+    plain = _leaves(q, k, v)
+    fa_ops.flash_attention_plain(*plain, causal=causal).backward(g)
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    for got, a, b in zip(leaves, chunked, plain):
+        assert got.grad.dtype == dtype and torch.isfinite(got.grad).all()
+        assert _rel_l2(got.grad, a.grad) <= 1e-6
+        assert _rel_l2(got.grad, b.grad) <= tol
+
+
+@pytest.mark.parametrize("route,dtype,P,N", [("sm90", torch.bfloat16, 64, 64),
+                                             ("scalar", torch.float32, 32, 16)])
+def test_ssd_gradients_through_the_function(cuda, route, dtype, P, N):
+    """K3 forward, plain backward, through y and the final state, with x a
+    strided view of a leaf: one launch and one backward call; the gradients
+    equal autograd through ssd_scan_torch (which the backward recomputes)
+    within 1e-6 relative L2, and autograd through the route's plain version
+    within 2**-6 in bf16 and 1e-4 in fp32."""
+    B, S, H = 2, 300, 4
+    x, dt, Bm, Cm, a = _ssd_inputs(cuda, B, S, H, P, N, dtype, None, 7)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    gy = torch.randn(B, S, H, P, generator=gen, device=cuda).to(dtype)
+    gs = torch.randn(B, H, N, P, generator=gen, device=cuda)
+    wide = torch.zeros(B, S, 2 * H, P, device=cuda, dtype=dtype)
+    wide[:, :, ::2] = x
+
+    def run(fn):
+        w, *rest = _leaves(wide, dt, Bm, Cm, a)
+        y, state = fn(w[:, :, ::2], *rest, 64)
+        ((y.float() * gy.float()).sum() + (state * gs).sum()).backward()
+        return [w.grad[:, :, ::2], *(t.grad for t in rest)]
+
+    assert ssd_ops.route(x, Bm) == route
+    launches, calls = ssd_ops.launches, ssd_ops.backward_calls
+    got = run(ssd_ops.ssd)
+    assert (ssd_ops.launches, ssd_ops.backward_calls) == (launches + 1, calls + 1)
+    recomputed = run(ssd_scan_torch)
+    plain = run(ssd_ops.ssd_plain)
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    for g, a_, b in zip(got, recomputed, plain):
+        assert torch.isfinite(g).all()
+        assert _rel_l2(g, a_) <= 1e-6
+        assert _rel_l2(g, b) <= tol
+
+
+def test_llama_train_step_on_the_card_matches_the_cpu(cuda):
+    """One make_train_step of llama3.2-3b's smoke config in fp32
+    activations, card against CPU on the same weights and batch: every
+    layer launches K2 (its scalar route: fp32) once and its plain backward
+    once; the loss within 1e-5 relative, every gradient (bf16) and moment
+    within 2**-7 relative L2, every parameter within one bf16 ulp plus two
+    steps where a noise-level gradient flips (tests/_train_step_compare.py
+    says why)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.training.data import SyntheticData
+    from repro_torch.training.optimizer import AdamW, warmup_cosine
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b", smoke=True), dtype=torch.float32)
+    batch = {k: torch.from_numpy(v).long()
+             for k, v in SyntheticData(cfg.vocab, 32, 4, seed=1).batch_at(0).items()}
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = Model(cfg, device="cpu")
+        model.to(dev)
+        opt = AdamW(lr=warmup_cosine(1e-2, warmup=0, total=10 ** 6))
+        step = make_train_step(model, opt)
+        launches, calls = fa_ops.launches, fa_ops.backward_calls
+        state, metrics = step(opt.init(dict(model.named_parameters())),
+                              {k: v.to(dev) for k, v in batch.items()})
+        if dev != "cpu":
+            assert fa_ops.launches == launches + cfg.n_layers
+            assert fa_ops.backward_calls == calls + cfg.n_layers
+        runs[str(dev)] = (float(metrics["loss"]), state,
+                          {k: p.detach().cpu() for k, p in model.named_parameters()})
+    (lc, sc, pc), (lg, sg, pg) = runs["cpu"], runs[str(cuda)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for k in pc:
+        for mom in ("m", "v"):
+            assert _rel_l2(sg[mom][k].cpu(), sc[mom][k]) <= 2.0 ** -7, (mom, k)
+        want = pc[k].float()
+        ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+        assert ((pg[k].float() - want).abs() <= 2 * 1e-2 * 1.1 + 2 * ulp).all(), k

@@ -322,9 +322,12 @@ def test_routing_matches_reference_in_prefill_and_decode(arch, monkeypatch):
 
 
 def test_other_families_raise():
-    """Only xlstm is left to port."""
+    """Every family of ARCHS is ported: each smoke config builds, with the
+    parameters its param_count counts, and a family outside them raises."""
     for arch in ARCHS:
         cfg = get_config(arch, smoke=True)
-        if cfg.family == "xlstm":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                Model(cfg, device="cpu")
+        model = Model(cfg, device="cpu")
+        assert cfg.param_count() == sum(p.numel() for p in model.parameters()), arch
+    with pytest.raises(NotImplementedError, match="not one of"):
+        Model(dataclasses.replace(get_config(ARCHS[0], smoke=True), family="rnn"),
+              device="cpu")

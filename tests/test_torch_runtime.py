@@ -411,6 +411,9 @@ COPIED = ([f"core/{m}.py" for m in (
                                "__init__")]
     + [f"chaos/{m}.py" for m in ("faults", "soak", "__init__")]
     + [f"obs/{m}.py" for m in ("trace", "metrics", "__init__")]
+    + [f"analysis/{m}.py" for m in ("core", "durability", "fencing", "lockrules",
+                                    "locktrace", "obsrules", "seams", "__init__")]
+    + ["training/data.py"]
     + [f"configs/{p.name}" for p in sorted((SRC / "repro" / "configs").glob("*.py"))])
 _IMPORT = re.compile(r"^(\s*)(from|import)\s+repro\.")
 
@@ -428,8 +431,10 @@ def test_copied_module_has_not_drifted(module):
 
 
 def test_tfcheck_passes_over_the_copy():
-    out = subprocess.run([sys.executable, "scripts/tfcheck.py", "src/repro_torch/core",
-                          "src/repro_torch/bus", "src/repro_torch/chaos"],
+    """The port's own entry point, with its copy of the rules, over its
+    default scope: the port's core, bus and chaos."""
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis.cli"],
                          cwd=REPO, env=dict(os.environ, PYTHONPATH=str(SRC)),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.startswith("tfcheck: clean ("), out.stdout
