@@ -139,17 +139,34 @@ decode ms a token and the device's busy share:
              and the plain one at another tile (the rounding floor); 5
              steps of make_train_step, each profiled (loss, ms, tokens/s,
              busy share, K2's launches and share, the plain backward's
-             share, peak memory); then the trigger-orchestrated run_training
-             at full width, 2 of 28 layers: 2 steps, then a new run on the
-             same workdir resumes at step 2 with the saved parameters bit
-             for bit; checkpoint save and restore timed.
+             share, peak memory; remat, the config's "full", recomputes each
+             layer's forward, so K2 launches twice a layer a step); then the
+             trigger-orchestrated run_training at full width, 2 of 28
+             layers: 2 steps, then a new run on the same workdir resumes at
+             step 2 with the saved parameters bit for bit; checkpoint save
+             and restore timed;
+18. distributed  the sharded path on the card's host mesh (1,) ("data",),
+             over a one-rank NCCL group on a FileStore under build/:
+             llama3.2-3b at full width and depth, 2 train steps without the
+             mesh, then 2 with its parameters, gradients and moments
+             DTensors and K2's sm90 kernel through local_map in every layer
+             (and in remat's recompute): the loss and every leaf's gradient
+             against the meshless steps (1e-3 relative L2 a leaf; the same
+             local ops, so bit for bit is expected), ms, busy share and peak
+             memory of each step; zamba2-1.2b at full size, one bf16 loss on
+             the mesh (K3's and K2's sm90 kernels through local_map) and one
+             fp32 loss on their scalar routes, against the meshless losses
+             and the plain versions' fp32 loss (1e-3 relative); then one
+             dry-run cell (llama3.2-3b × decode_32k, trace only) in a
+             process of its own with no card visible; the group is destroyed
+             before the phase returns.
 
 Each kernel's launch count is set to 0 just before the path that should
 launch it (phases 5, 6 and 7, and the fp32 forwards of 7 for the scalar
 kernels of K2 and K3; in phases 8-10, K1's count in the shard processes;
 each serving run, model-level run and fp32 check of phases 12-15; the
-xlstm run of 16; the 5 train steps and the orchestrated runs of 17) and
-read just after.  Earlier lines print JSON
+xlstm run of 16; the 5 train steps and the orchestrated runs of 17; the
+mesh's train steps and each zamba2 loss of 18) and read just after.  Earlier lines print JSON
 results, the card's name and power limit and a "kernels" line; the last line
 is {"ok": true, "device": {...}}.  Those last lines come only once every
 process the phases started has ended (``stop_children``: shards a failed
@@ -1991,10 +2008,13 @@ def phase_train(tmp):
     _zero(counters)
     steps = _train_steps(model, data, 5)
     launches = _read(counters)
-    if launches["k2_launches_sm90"] != 5 * cfg.n_layers or launches["k1"] or \
+    # remat recomputes each block's forward, K2 with it, in the backward
+    per_step = cfg.n_layers * (2 if cfg.remat and cfg.remat_policy != "none" else 1)
+    if launches["k2_launches_sm90"] != 5 * per_step or launches["k1"] or \
             launches["k2_backward_calls"] != 5 * cfg.n_layers:
         raise AssertionError(f"launches in 5 train steps: {launches}; want K2's sm90 route "
-                             f"and its backward once a layer a step, no K1")
+                             f"{per_step} times a step (remat {cfg.remat_policy}) and its "
+                             f"backward once a layer a step, no K1")
     if not all(torch.isfinite(torch.tensor(r["loss"])) for r in steps):
         raise AssertionError(f"llama3.2-3b: a train step's loss is not finite: {steps}")
     del model
@@ -2005,6 +2025,262 @@ def phase_train(tmp):
          seconds=time.perf_counter() - t0)
     return {"train": launches["k2_launches_sm90"],
             "train_orchestrated": orchestrated["launches"]["k2_launches_sm90"]}
+
+
+# ------------------------------------------------------------ the mesh path ----
+def _full(t):
+    """A DTensor's whole value (a plain tensor as it is)."""
+    return t.full_tensor() if type(t).__name__ == "DTensor" else t
+
+
+def _mesh_batch(batch, resolver):
+    """The batch's tensors split at ("batch", None, ...) on the resolver's
+    mesh (every rank passes the same whole tensors)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return {k: distribute_tensor(v, resolver.mesh,
+                                 resolver(("batch",) + (None,) * (v.dim() - 1), v.shape))
+            for k, v in batch.items()}
+
+
+def _compared_steps(cfg, data, n, resolver=None, want=None):
+    """``n`` steps of make_train_step from seed 0, without a mesh or (with
+    ``resolver``) on its mesh, the parameters DTensors; each step profiled:
+    loss, ms (host wall ending in a synchronize), the busy share, peak
+    memory.  Without a mesh each step's gradients are kept on the host;
+    on the mesh each step's are held leaf by leaf against ``want``'s
+    (relative L2 per leaf, on the card) → (rows, the kept gradients)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed.sharding import activate, distribute_model
+    from repro_torch.models import Model
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import make_train_step
+
+    seen = []
+
+    class Recording(AdamW):
+        def update(self, grads, state, params):
+            seen.append(dict(grads))
+            return super().update(grads, state, params)
+
+    model = Model(cfg, device="cuda", seed=0)
+    if resolver is not None:
+        distribute_model(model, resolver)
+    opt = Recording()
+    step_fn = make_train_step(model, opt)
+    state = opt.init(dict(model.named_parameters()))
+    rows, kept = [], []
+    for i in range(n):
+        batch = {k: torch.from_numpy(v).long().cuda() for k, v in data.batch_at(i).items()}
+        if resolver is not None:
+            batch = _mesh_batch(batch, resolver)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if resolver is None:
+                state, metrics = step_fn(state, batch)
+            else:
+                with activate(resolver):
+                    state, metrics = step_fn(state, batch)
+            loss = float(_full(metrics["loss"]))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        device_ms = sum(e.device_time_total for e in _kernel_events(prof.events())) / 1e3
+        row = {"step": i + 1, "loss": loss, "ms": ms, "device_ms": device_ms or None,
+               "busy_share": device_ms / ms if device_ms else None,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        grads = seen.pop()
+        if resolver is None:
+            kept.append({k: g.detach().cpu() for k, g in grads.items()})
+        else:
+            errs = {}
+            for k, g in grads.items():
+                w = want[i][k].cuda().float()
+                d = (_full(g).float() - w).norm().item()
+                errs[k] = d / w.norm().item() if w.norm().item() else float(d > 0)
+            worst = max(errs, key=errs.get)
+            row.update(grad_max_leaf_rel_l2=errs[worst], grad_worst_leaf=worst,
+                       grad_leaves_bit_equal=sum(e == 0 for e in errs.values()),
+                       grad_leaves=len(errs))
+        del grads
+        rows.append(row)
+    del model, state, step_fn, opt
+    _drop_models()
+    return rows, kept
+
+
+def _dryrun_cell(arch, shape, timeout=240):
+    """``python -m repro_torch.launch.dryrun`` on one cell, trace-proof only,
+    in a process of its own (the fake 512-rank group must own its
+    interpreter), with no card visible → its result."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                          "--shape", shape, "--no-probe"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    path = ROOT / "results" / "torch" / "dryrun" / f"{arch}_{shape}_single.json"
+    if out.returncode or not path.is_file():
+        raise AssertionError(f"the dry-run of {arch} × {shape} ended {out.returncode}: "
+                             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    res = json.loads(path.read_text())
+    if res["status"] != "ok":
+        raise AssertionError(f"the dry-run of {arch} × {shape}: {res}")
+    return {"arch": arch, "shape": shape, "status": res["status"], "seconds": seconds,
+            "trace_s": res["compile_s"], "n_devices": res["n_devices"],
+            "terms_s": {k: res["roofline"][k] for k in ("t_compute", "t_memory",
+                                                          "t_collective")},
+            "dominant": res["dominant"], "collective_counts": {
+                k: v for k, v in res["collectives"].items() if k.startswith("count_") and v}}
+
+
+def phase_distributed(tmp):
+    """The sharded path on the card's host mesh (n,) ("data",): a one-rank
+    NCCL group on a FileStore; llama3.2-3b at full width and depth, 2 train
+    steps with its parameters, gradients and moments DTensors, K2's sm90
+    kernel through local_map in every layer, loss and every leaf's gradient
+    against the same steps without the mesh; zamba2-1.2b at full size, one
+    bf16 loss on the mesh (K3's and K2's sm90 kernels through local_map)
+    against the meshless loss, and one fp32 loss on the scalar routes
+    against the meshless one and the plain versions'; one dry-run cell in a
+    process of its own.  The group is destroyed and the card's memory freed
+    before it returns."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Resolver, activate, distribute_model
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_scan_torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model, layers, ssm
+    from repro_torch.training.data import SyntheticData
+
+    t0 = time.perf_counter()
+    _drop_models()
+    if not dist.is_nccl_available():
+        raise AssertionError("this torch has no NCCL: the mesh path needs it")
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp / "store"), 1),
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh()
+        counters = _all_counters()
+
+        # llama3.2-3b: 2 train steps without the mesh, then on it
+        cfg = get_config("llama3.2-3b")
+        data = SyntheticData(cfg.vocab, 256, 8, kind="copy_task", seed=0)
+        plain_rows, want = _compared_steps(cfg, data, 2)
+        resolver = Resolver(cfg, mesh)
+        _zero(counters)
+        mesh_rows, _ = _compared_steps(cfg, data, 2, resolver, want)
+        train_launches = _read(counters)
+        del want
+        remat = cfg.remat and cfg.remat_policy != "none"
+        per_step = cfg.n_layers * (2 if remat else 1)     # forward (+ its recompute)
+        want_k2 = {"k2_launches_sm90": 2 * per_step, "k2_backward_calls": 2 * cfg.n_layers,
+                   "k2_launches_scalar": 0, "k3_launches": 0, "k1": 0}
+        got = {k: train_launches[k] for k in want_k2}
+        if got != want_k2:
+            raise AssertionError(f"launches in 2 train steps on the mesh: {got}, want "
+                                 f"{want_k2} (28 layers, remat {cfg.remat_policy})")
+        for p, m in zip(plain_rows, mesh_rows):
+            rel = abs(m["loss"] - p["loss"]) / abs(p["loss"])
+            m["loss_rel_diff"] = rel
+            if not (rel <= 1e-3 and m["grad_max_leaf_rel_l2"] <= 1e-3):
+                raise AssertionError(f"llama3.2-3b on the mesh: step {m['step']} loss "
+                                     f"{m['loss']} against {p['loss']}, worst leaf "
+                                     f"{m['grad_worst_leaf']} at {m['grad_max_leaf_rel_l2']}"
+                                     f" relative L2, over 1e-3")
+
+        # zamba2-1.2b: one bf16 loss and one fp32 loss, without the mesh,
+        # with the plain versions, and on the mesh
+        zcfg = get_config("zamba2-1.2b")
+        model = Model(zcfg, device="cuda", seed=0)
+        rng = np.random.default_rng(0)
+        tokens = torch.from_numpy(rng.integers(0, zcfg.vocab, (4, 512))).long().cuda()
+        zbatch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+        sites = len(zcfg.shared_sites())
+        fp32_cfg = dataclasses.replace(zcfg, dtype=torch.float32)
+
+        def loss_of(batch, fp32=False, on_mesh=False):
+            model.cfg = fp32_cfg if fp32 else zcfg
+            try:
+                with torch.no_grad():
+                    if on_mesh:
+                        with activate(resolver_z):
+                            return float(_full(model.loss(batch)[0]))
+                    return float(model.loss(batch)[0])
+            finally:
+                model.cfg = zcfg
+
+        plain_bf16 = loss_of(zbatch)
+        plain_fp32 = loss_of(zbatch, fp32=True)
+        real_ssd, real_fa = ssm.ssd, layers.flash_attention
+        ssm.ssd = ssd_scan_torch
+        layers.flash_attention = fa_ops.flash_attention_plain
+        _zero(counters)
+        try:
+            reference_fp32 = loss_of(zbatch, fp32=True)
+        finally:
+            ssm.ssd, layers.flash_attention = real_ssd, real_fa
+        if any(_read(counters).values()):
+            raise AssertionError(f"the plain versions' loss launched kernels: "
+                                 f"{_read(counters)}")
+        resolver_z = Resolver(zcfg, mesh)
+        distribute_model(model, resolver_z)
+        mbatch = _mesh_batch(zbatch, resolver_z)
+        _zero(counters)
+        mesh_bf16 = loss_of(mbatch, on_mesh=True)
+        bf16_launches = _read(counters)
+        _zero(counters)
+        mesh_fp32 = loss_of(mbatch, fp32=True, on_mesh=True)
+        fp32_launches = _read(counters)
+        want_bf16 = {"k3_launches_sm90": zcfg.n_layers, "k3_launches_scalar": 0,
+                     "k2_launches_sm90": sites, "k2_launches_scalar": 0}
+        want_fp32 = {"k3_launches_sm90": 0, "k3_launches_scalar": zcfg.n_layers,
+                     "k2_launches_sm90": 0, "k2_launches_scalar": sites}
+        for got, wanted, what in ((bf16_launches, want_bf16, "bf16"),
+                                  (fp32_launches, want_fp32, "fp32")):
+            if {k: got[k] for k in wanted} != wanted:
+                raise AssertionError(f"zamba2-1.2b's {what} loss on the mesh launched "
+                                     f"{got}, want {wanted}")
+        gaps = {"bf16_mesh_vs_meshless": abs(mesh_bf16 - plain_bf16) / abs(plain_bf16),
+                "fp32_mesh_vs_meshless": abs(mesh_fp32 - plain_fp32) / abs(plain_fp32),
+                "fp32_mesh_vs_plain_versions": abs(mesh_fp32 - reference_fp32)
+                / abs(reference_fp32)}
+        # the fp32 loss with the kernels against the plain versions': the
+        # rounding of 38 layers averaged over 2048 tokens, far under 1e-3
+        if not (gaps["bf16_mesh_vs_meshless"] <= 1e-3 and gaps["fp32_mesh_vs_meshless"] <= 1e-3
+                and gaps["fp32_mesh_vs_plain_versions"] <= 1e-3):
+            raise AssertionError(f"zamba2-1.2b's losses on the mesh: bf16 {mesh_bf16} against "
+                                 f"{plain_bf16}; fp32 {mesh_fp32} against {plain_fp32} and "
+                                 f"the plain versions' {reference_fp32}: {gaps} over 1e-3")
+        del model
+        _drop_models()
+
+        dry = _dryrun_cell("llama3.2-3b", "decode_32k")
+    finally:
+        dist.destroy_process_group()
+        _drop_models()
+    emit(phase="distributed", mesh={"shape": [1], "axes": ["data"], "backend": "nccl"},
+         llama={"arch": cfg.arch, "batch": 8, "seq": 256, "remat": cfg.remat_policy,
+                "k2_launches_per_step": per_step, "launches": train_launches,
+                "meshless": plain_rows, "mesh": mesh_rows},
+         zamba={"arch": zcfg.arch, "batch": 4, "seq": 512, "loss_bf16": [plain_bf16, mesh_bf16],
+                "loss_fp32": [plain_fp32, mesh_fp32, reference_fp32], "rel_gaps": gaps,
+                "launches_bf16": bf16_launches, "launches_fp32": fp32_launches},
+         dryrun=dry, seconds=time.perf_counter() - t0)
+    return {"k2_sm90": train_launches["k2_launches_sm90"] + bf16_launches["k2_launches_sm90"],
+            "k2_scalar": fp32_launches["k2_launches_scalar"],
+            "k3_sm90": bf16_launches["k3_launches_sm90"],
+            "k3_scalar": fp32_launches["k3_launches_scalar"]}
 
 
 # ------------------------------------------------------ child processes ----
@@ -2603,7 +2879,7 @@ def main() -> int:
 
 
 def run_phases(torch) -> list:
-    """Phases 1-17; returns the lines that end the output (the kernels line,
+    """Phases 1-18; returns the lines that end the output (the kernels line,
     the card's name and power limit, the result), printed once every process
     the phases started has ended."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2635,6 +2911,8 @@ def run_phases(torch) -> list:
     phase_xlstm()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
         train = phase_train(Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
+        mesh = phase_distributed(Path(tmp))
     emit(phase="total", seconds=time.perf_counter() - t_start)
     mla = families["deepseek-v2-236b"]
     sm90_paths = {"llama3.2-3b": k2_launches, "zamba2-1.2b": hybrid["k2_sm90"],
@@ -2643,12 +2921,14 @@ def run_phases(torch) -> list:
                   "phi3.5-moe-42b-a6.6b": families["phi3.5-moe-42b-a6.6b"]["sm90"],
                   "deepseek-v2-236b": mla["sm90"],
                   "train": train["train"],
-                  "train_orchestrated": train["train_orchestrated"]}
+                  "train_orchestrated": train["train_orchestrated"],
+                  "distributed": mesh["k2_sm90"]}
     # the scalar route serves no path since deepseek-v2 took the sm90 route:
     # its launches are the fp32 logit checks'
     scalar_paths = {"zamba2-1.2b fp32": hybrid["k2_scalar"],
                     "phi3.5-moe-42b-a6.6b fp32": families["phi3.5-moe-42b-a6.6b"]["scalar"],
-                    "deepseek-v2-236b fp32": mla["scalar_fp32"]}
+                    "deepseek-v2-236b fp32": mla["scalar_fp32"],
+                    "distributed fp32": mesh["k2_scalar"]}
     # the sm90 row is timed at llama3.2-3b's shape, with deepseek-v2's beside
     # it; the scalar row keeps deepseek-v2's shape, as before the sm90 route
     # took it, with llama3.2-3b's beside it
@@ -2674,10 +2954,15 @@ def run_phases(torch) -> list:
         {"name": "ssd_scan_sm90", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan_sm90.cu",
          "replaces": "src/repro/kernels/ssd/ssd.py:78",
-         "launches": hybrid["k3_sm90"], **k3["sm90"]},
+         "launches": hybrid["k3_sm90"] + mesh["k3_sm90"],
+         "launches_by_path": {"zamba2-1.2b": hybrid["k3_sm90"], "distributed": mesh["k3_sm90"]},
+         **k3["sm90"]},
         {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd/ssd.py:78",
-         "launches": hybrid["k3_scalar"], **k3["scalar"]},
+         "launches": hybrid["k3_scalar"] + mesh["k3_scalar"],
+         "launches_by_path": {"zamba2-1.2b fp32": hybrid["k3_scalar"],
+                              "distributed fp32": mesh["k3_scalar"]},
+         **k3["scalar"]},
     ]
     idle = [kern["name"] for kern in kernels if not kern["launches"]]
     if idle:

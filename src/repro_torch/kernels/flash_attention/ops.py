@@ -26,7 +26,9 @@ JAX package's ``attention_chunked`` in plain torch from the saved q, k, v
 and backpropagates through it (the JAX package has no backward kernel; its
 train step differentiates plain jnp).  ``backward_calls`` counts those
 backward passes.  Without autograd (serving) the forward is the same one
-launch.
+launch.  On DTensors (the mesh path) each rank runs the route on its local
+shards (``kernels._mesh``): batch and heads may be split, and k and v
+follow q's heads, so kv heads must split as q's do.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ import math
 
 import torch
 
-from .. import _cuda
+from .. import _cuda, _mesh
 from .ref import SM90_BLOCK_K, flash_attention_torch
 
 launches = 0
@@ -202,7 +204,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q [B,S,Hq,D], k [B,S,Hkv,D], v [B,S,Hkv,Dv] → [B,S,Hq,Dv] in q's
     dtype; query head h reads kv head h // (Hq // Hkv).  Differentiable:
-    on the card through ``FlashAttentionFn``, on the CPU as plain torch."""
+    on the card through ``FlashAttentionFn``, on the CPU as plain torch.
+    On DTensors, per rank on the local shards (``kernels._mesh``)."""
+    if _mesh.is_dtensor(q):
+        return _flash_attention_on_mesh(q, k, v, causal)
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
@@ -210,3 +215,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     kernel = flash_attention_sm90 if route(q, k, v) == "sm90" else flash_attention_scalar
     return FlashAttentionFn.apply(q, k, v, causal, kernel)
+
+
+def _flash_attention_on_mesh(q, k, v, causal: bool):
+    _check(q, k, v)
+    placements = _mesh.base_placements(q, "flash_attention")
+    n = _mesh.heads_split(q.device_mesh, placements)
+    if k.shape[2] % n:
+        raise ValueError(f"flash_attention on a mesh: {q.shape[2]} query heads split over "
+                         f"{n} ranks, but k's {k.shape[2]} kv heads cannot follow them")
+    return _mesh.run(lambda q, k, v: flash_attention(q, k, v, causal=causal), (q, k, v),
+                     (placements,) * 3, list(placements), q.device_mesh)

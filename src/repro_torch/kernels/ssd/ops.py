@@ -27,13 +27,15 @@ forward is the route's kernel, its backward recomputes ``ssd_scan_torch``
 (without the two-term split) in plain torch from the saved inputs and
 backpropagates through it (the JAX package has no backward kernel).
 ``backward_calls`` counts those backward passes.  Without autograd
-(serving) the forward is the same one launch.
+(serving) the forward is the same one launch.  On DTensors (the mesh path)
+each rank runs the route on its local shards (``kernels._mesh``): batch
+and heads may be split; B and C follow the batch split, a the heads'.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import _cuda
+from .. import _cuda, _mesh
 from .ref import ssd_scan_torch
 
 launches = 0
@@ -89,9 +91,10 @@ def ssd_plain(x, dt, Bm, Cm, a, chunk: int = 128,
               decay_dtype: torch.dtype = torch.float32):
     """The plain version of the route that the inputs take: the sm90 route
     splits its fp32 operands into two bf16 terms, the scalar route keeps
-    them fp32."""
-    return ssd_scan_torch(x, dt, Bm, Cm, a, chunk, decay_dtype=decay_dtype,
-                          **PLAIN_ARGS[route(x, Bm)])
+    them fp32.  A decay in another type than fp32 has no kernel (ROADMAP.md
+    §2 item 4), so no route: it takes the unsplit form, the reference's."""
+    split = PLAIN_ARGS[route(x, Bm)] if decay_dtype == torch.float32 else {}
+    return ssd_scan_torch(x, dt, Bm, Cm, a, chunk, decay_dtype=decay_dtype, **split)
 
 
 def copy_check(x, Bm, Cm) -> None:
@@ -233,7 +236,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     min(chunk, S) steps.  ``decay_dtype`` is the plain version's (see
     ``ssd_scan_torch``); the kernels compute their decay in fp32 only.
     Differentiable: on the card through ``SSDFn``, on the CPU as plain
-    torch."""
+    torch.  On DTensors, per rank on the local shards (``kernels._mesh``)."""
+    if _mesh.is_dtensor(x):
+        return _ssd_on_mesh(x, dt, Bm, Cm, a, chunk, decay_dtype)
     _check(x, dt, Bm, Cm, a)
     if x.device.type == "cpu":
         return ssd_plain(x, dt, Bm, Cm, a, chunk, decay_dtype=decay_dtype)
@@ -241,3 +246,21 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         raise ValueError(f"ssd: no kernel for device {x.device}")
     kernel = ssd_sm90 if route(x, Bm) == "sm90" else ssd_scalar
     return SSDFn.apply(x, dt, Bm, Cm, a, chunk, decay_dtype, kernel)
+
+
+def _ssd_on_mesh(x, dt, Bm, Cm, a, chunk, decay_dtype):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    _check(x, dt, Bm, Cm, a)
+    base = _mesh.base_placements(x, "ssd")
+    # B and C are shared by the heads, a by the batch: whole where those
+    # are split, and their gradients partial there
+    shared = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in base)
+    heads = tuple(Shard(0) if p.is_shard(2) else Replicate() for p in base)
+    shared_grad = tuple(Partial() if p.is_shard(2) else s for p, s in zip(base, shared))
+    heads_grad = tuple(Partial() if p.is_shard(0) else h for p, h in zip(base, heads))
+    state = tuple(Shard(1) if p.is_shard(2) else p for p in base)
+    return _mesh.run(lambda *t: ssd(*t, chunk, decay_dtype=decay_dtype),
+                     (x, dt, Bm, Cm, a), (base, base, shared, shared, heads),
+                     (list(base), list(state)), x.device_mesh,
+                     (base, base, shared_grad, shared_grad, heads_grad))

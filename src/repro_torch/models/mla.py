@@ -17,32 +17,39 @@ import torch
 from torch import nn
 
 from .common import make_param
-from .layers import RMSNorm, apply_rope, attention, rms_norm, rope_angles
+from .layers import (RMSNorm, apply_rope, attention, einsum, lsc, rms_norm, rope_angles,
+                     write_slice)
 
 
 class MLA(nn.Module):
     def __init__(self, gen, d_model: int, n_heads: int, q_lora: int, kv_lora: int,
                  nope_dim: int = 128, rope_dim: int = 64, v_dim: int = 128, device=None):
         super().__init__()
-        self.wdq = make_param(gen, (d_model, q_lora), d_model ** -0.5, device=device)
+        self.wdq = make_param(gen, (d_model, q_lora), ("embed", None), d_model ** -0.5,
+                              device=device)
         self.q_norm = RMSNorm(q_lora, device)
-        self.wuq = make_param(gen, (q_lora, n_heads, nope_dim + rope_dim), q_lora ** -0.5,
+        self.wuq = make_param(gen, (q_lora, n_heads, nope_dim + rope_dim),
+                              (None, "heads", "head"), q_lora ** -0.5,
                               device=device)
-        self.wdkv = make_param(gen, (d_model, kv_lora), d_model ** -0.5, device=device)
+        self.wdkv = make_param(gen, (d_model, kv_lora), ("embed", None), d_model ** -0.5,
+                               device=device)
         self.kv_norm = RMSNorm(kv_lora, device)
-        self.wuk = make_param(gen, (kv_lora, n_heads, nope_dim), kv_lora ** -0.5,
+        self.wuk = make_param(gen, (kv_lora, n_heads, nope_dim), (None, "heads", "head"),
+                              kv_lora ** -0.5,
                               device=device)
-        self.wuv = make_param(gen, (kv_lora, n_heads, v_dim), kv_lora ** -0.5,
+        self.wuv = make_param(gen, (kv_lora, n_heads, v_dim), (None, "heads", "head"),
+                              kv_lora ** -0.5,
                               device=device)
-        self.wkr = make_param(gen, (d_model, rope_dim), d_model ** -0.5, device=device)
-        self.wo = make_param(gen, (n_heads, v_dim, d_model), (n_heads * v_dim) ** -0.5,
-                             device=device)
+        self.wkr = make_param(gen, (d_model, rope_dim), ("embed", None), d_model ** -0.5,
+                              device=device)
+        self.wo = make_param(gen, (n_heads, v_dim, d_model), ("heads", "head", "embed"),
+                             (n_heads * v_dim) ** -0.5, device=device)
 
 
 def _queries(p: MLA, x, cos, sin, nope_dim):
     dt = x.dtype
     cq = rms_norm(x @ p.wdq.to(dt), p.q_norm.w)
-    q = torch.einsum("bsq,qhk->bshk", cq, p.wuq.to(dt))
+    q = einsum("bsq,qhk->bshk", cq, p.wuq.to(dt))
     return q[..., :nope_dim], apply_rope(q[..., nope_dim:], cos, sin)
 
 
@@ -56,19 +63,22 @@ def _latent(p: MLA, x, cos, sin):
 
 
 def mla_forward(p: MLA, x, positions, nope_dim=128, rope_dim=64, rope_theta=10000.0,
-                q_chunk=2048, kv_chunk=2048):
+                q_chunk=2048, kv_chunk=2048, unroll=False):
     """Prefill: x [B,S,D] → (out [B,S,D], (c_kv [B,S,kvl], k_rope [B,S,rope]))."""
     B, S, _ = x.shape
     dt = x.dtype
     cos, sin = rope_angles(positions, rope_dim, rope_theta)
     qn, qr = _queries(p, x, cos, sin, nope_dim)
     ckv, kr = _latent(p, x, cos, sin)
-    kn = torch.einsum("bsc,chk->bshk", ckv, p.wuk.to(dt))
-    v = torch.einsum("bsc,chk->bshk", ckv, p.wuv.to(dt)).contiguous()
+    kn = einsum("bsc,chk->bshk", ckv, p.wuk.to(dt))
+    v = einsum("bsc,chk->bshk", ckv, p.wuv.to(dt)).contiguous()
     H = kn.shape[2]
     q = torch.cat([qn, qr], -1)
     k = torch.cat([kn, kr.expand(B, S, H, kr.shape[-1])], -1)
-    attn = attention(q, k, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    q = lsc(q, "batch", "seq", "heads", None)
+    k = lsc(k, "batch", "seq", "heads", None)
+    attn = attention(q, k, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                     unroll=unroll)
     out = torch.einsum("bshk,hkd->bsd", attn, p.wo.to(dt))
     return out, (ckv, kr[:, :, 0, :])
 
@@ -89,8 +99,8 @@ def mla_decode(p: MLA, x, cache_ckv, cache_kr, pos: int, nope_dim=128, rope_dim=
     cos, sin = rope_angles(positions, rope_dim, rope_theta)
     qn, qr = _queries(p, x, cos, sin, nope_dim)                     # [B,1,H,*]
     ckv_t, kr_t = _latent(p, x, cos, sin)
-    cache_ckv[:, pos:pos + 1] = ckv_t.to(cache_ckv.dtype)
-    cache_kr[:, pos:pos + 1] = kr_t[:, :, 0, :].to(cache_kr.dtype)
+    write_slice(cache_ckv, pos, ckv_t)
+    write_slice(cache_kr, pos, kr_t[:, :, 0, :])
     # absorb W_uk into the query: q_lat [B,H,kvl]
     q_lat = torch.einsum("bhk,chk->bhc", qn[:, 0], p.wuk.to(dt))
     s = torch.einsum("bhc,btc->bht", q_lat, cache_ckv).float()

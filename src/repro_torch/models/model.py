@@ -38,10 +38,13 @@ than once.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as L
 from . import mla as MLA
@@ -92,8 +95,12 @@ class ModelConfig:
     n_patches: int = 0
     # audio
     codebooks: int = 0
-    # compute knobs (the JAX package's hillclimb levers; the CPU attention
-    # path reads q_chunk/kv_chunk, the rest are kept for config parity)
+    # compute knobs (the JAX package's hillclimb levers): remat and
+    # remat_policy pick each block's activation checkpointing under
+    # autograd (``_remat``); the CPU attention reads q_chunk, kv_chunk and
+    # unroll_attention (the causal block skip); the port's layers are a
+    # ModuleList whatever scan_layers says, which names the reference's
+    # stacking only (``models.convert``)
     scan_layers: bool = True
     remat: bool = True
     remat_policy: str = "full"     # full | dots | none
@@ -122,7 +129,6 @@ class ModelConfig:
         if not self.attn_every:
             return []
         return [i for i in range(self.n_layers) if i % self.attn_every == 0]
-
 
     def param_count(self) -> int:
         """Parameter count from the shapes ``Model`` builds."""
@@ -166,6 +172,16 @@ class ModelConfig:
         return (outer + norms + gqa + mlp(self.d_ff) + len(self.shared_sites()) * 2 * d * d
                 + self.n_layers * mamba)
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (N_active of the MoE rooflines), as
+        the reference counts them."""
+        total = self.param_count()
+        if not self.n_experts:
+            return total
+        per_expert = 3 * self.d_model * self.d_ff_expert
+        n_moe_layers = self.n_layers - self.moe_layer_start
+        return total - per_expert * (self.n_experts - self.top_k) * n_moe_layers
+
 
 # the families whose layers are GQA attention with a K/V cache
 GQA_FAMILIES = ("dense", "vlm", "audio", "moe")
@@ -177,6 +193,50 @@ def _require_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.arch}) is not one of the port's "
             f"{PORTED_FAMILIES}")
+
+
+# the counterpart of jax's dots_with_no_batch_dims_saveable: keep what a
+# matrix product made, recompute the rest
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default})
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under the config's activation checkpointing: ``"full"``
+    recomputes the whole block in the backward, ``"dots"`` keeps the
+    outputs of mm/bmm/addmm and recomputes the rest; ``"none"`` or
+    ``remat=False`` run it as it is.  Outside autograd (serving under
+    ``no_grad``) every policy runs ``fn`` as it is."""
+    if not cfg.remat or cfg.remat_policy == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat_policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_saveable))
+    if cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: one of full, dots, none")
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def _normed(norm: nn.Module, x):
+    """A block's normed input, its sequence whole: between blocks the
+    reference splits the sequence ("act_seq"), and a DTensor whose batch
+    and sequence are split over two mesh dims cannot be flattened for the
+    block's matrix products, so the split is gathered here (the identity
+    off a mesh)."""
+    return L.lsc(norm(x), "batch", "seq", None)
+
+
+def _residual(x, h):
+    """x + a block's output h, h made whole in the sequence first: in the
+    backward h's gradient then arrives whole too, which the block's matrix
+    products need (see ``_normed``); the identity off a mesh."""
+    return x + L.lsc(h, "batch", "seq", None)
 
 
 class Layer(nn.Module):
@@ -230,15 +290,18 @@ class Model(nn.Module):
         super().__init__()
         _require_ported(cfg)
         self.cfg = cfg
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = (None if torch.device(device).type == "meta"
+               else torch.Generator(device=device).manual_seed(seed))
         d, fam = cfg.d_model, cfg.family
         if fam == "audio":
-            self.embed = make_param(gen, (cfg.codebooks, cfg.vocab, d), 0.02, device=device)
-            self.heads = make_param(gen, (cfg.codebooks, d, cfg.vocab), d ** -0.5,
-                                    device=device)
+            self.embed = make_param(gen, (cfg.codebooks, cfg.vocab, d),
+                                    (None, "vocab", "embed"), 0.02, device=device)
+            self.heads = make_param(gen, (cfg.codebooks, d, cfg.vocab),
+                                    (None, "embed", "vocab"), d ** -0.5, device=device)
         else:
-            self.embed = make_param(gen, (cfg.vocab, d), 0.02, device=device)
-            self.lm_head = make_param(gen, (d, cfg.vocab), d ** -0.5, device=device)
+            self.embed = make_param(gen, (cfg.vocab, d), ("vocab", "embed"), 0.02, device=device)
+            self.lm_head = make_param(gen, (d, cfg.vocab), ("embed", "vocab"),
+                                      d ** -0.5, device=device)
         self.final_norm = L.RMSNorm(d, device)
         if fam in GQA_FAMILIES:
             self.layers = nn.ModuleList(Layer(cfg, gen, device, moe=fam == "moe")
@@ -258,7 +321,7 @@ class Model(nn.Module):
             self.layers = nn.ModuleList(MambaLayer(cfg, gen, device)
                                         for _ in range(cfg.n_layers))
             self.shared_proj = nn.ParameterList(
-                make_param(gen, (2 * d, d), (2 * d) ** -0.5, device=device)
+                make_param(gen, (2 * d, d), ("embed", "embed2"), (2 * d) ** -0.5, device=device)
                 for _ in cfg.shared_sites())
 
     # ------------------------------------------------------------- helpers ----
@@ -274,14 +337,14 @@ class Model(nn.Module):
             x = torch.zeros(tokens.shape[0], tokens.shape[2], cfg.d_model, dtype=cfg.dtype,
                             device=tokens.device)
             for kb in range(cfg.codebooks):
-                x = x + self.embed[kb][tokens[:, kb]].to(cfg.dtype)
-            return x
-        x = self.embed[tokens]
+                x = x + L.embed_lookup(self.embed[kb], tokens[:, kb]).to(cfg.dtype)
+            return L.lsc(x, "batch", "seq", None)
+        x = L.embed_lookup(self.embed, tokens)
         if cfg.family == "vlm" and "patch_embeds" in batch:
             where = batch["patch_positions"]
             rows = torch.arange(x.shape[0], device=x.device)[:, None].expand_as(where)
             x[rows, where] = batch["patch_embeds"].to(x.dtype)
-        return x.to(cfg.dtype)
+        return L.lsc(x.to(cfg.dtype), "batch", "seq", None)
 
     def _rope(self, batch, S, device):
         """cos/sin for positions [0, S): vlm's M-RoPE from ``positions3``
@@ -297,34 +360,34 @@ class Model(nn.Module):
         return L.rope_angles(pos, cfg.head_dim, cfg.rope_theta)
 
     def _unembed(self, x):
-        x = self.final_norm(x)
+        x = _normed(self.final_norm, x)
         if self.cfg.family == "audio":
-            logits = torch.einsum("bsd,kdv->bskv", x, self.heads.to(x.dtype))
+            logits = L.einsum("bsd,kdv->bskv", x, self.heads.to(x.dtype))
         else:
-            logits = torch.einsum("bsd,dv->bsv", x, self.lm_head.to(x.dtype))
+            logits = L.einsum("bsd,dv->bsv", x, self.lm_head.to(x.dtype))
         return logits.float()
 
     def _ffn(self, lp: Layer, x):
         """x + the layer's FFN of ln2(x) → (x, the MoE's aux loss or None)."""
         cfg = self.cfg
         if lp.moe is None:
-            return x + L.mlp_forward(lp.mlp, lp.ln2(x)), None
-        m, aux = MOE.moe_forward(lp.moe, lp.ln2(x), cfg.top_k, cfg.capacity_factor)
-        return x + m, aux
+            return _residual(x, L.mlp_forward(lp.mlp, _normed(lp.ln2, x))), None
+        m, aux = MOE.moe_forward(lp.moe, _normed(lp.ln2, x), cfg.top_k, cfg.capacity_factor)
+        return _residual(x, m), aux
 
     def _block(self, lp: Layer, x, cos, sin):
         cfg = self.cfg
-        h, kv = L.gqa_forward(lp.attn, lp.ln1(x), cos, sin, q_chunk=cfg.q_chunk,
-                              kv_chunk=cfg.kv_chunk)
-        x, aux = self._ffn(lp, x + h)
+        h, kv = L.gqa_forward(lp.attn, _normed(lp.ln1, x), cos, sin, q_chunk=cfg.q_chunk,
+                              kv_chunk=cfg.kv_chunk, unroll=cfg.unroll_attention)
+        x, aux = self._ffn(lp, _residual(x, h))
         return x, kv, aux
 
     def _mla_block(self, lp: Layer, x, positions):
         cfg = self.cfg
-        h, latent = MLA.mla_forward(lp.attn, lp.ln1(x), positions, cfg.nope_head_dim,
+        h, latent = MLA.mla_forward(lp.attn, _normed(lp.ln1, x), positions, cfg.nope_head_dim,
                                     cfg.rope_head_dim, cfg.rope_theta, cfg.q_chunk,
-                                    cfg.kv_chunk)
-        x, aux = self._ffn(lp, x + h)
+                                    cfg.kv_chunk, unroll=cfg.unroll_attention)
+        x, aux = self._ffn(lp, _residual(x, h))
         return x, latent, aux
 
     def _mla_layers(self):
@@ -337,13 +400,32 @@ class Model(nn.Module):
     def _site_input(self, site: int, x, x0):
         """Zamba2's shared block reads concat(x, embeddings) through the
         site's own projection; its output is added to x."""
-        return torch.cat([x, x0], dim=-1) @ self.shared_proj[site].to(x.dtype)
+        return L.matmul(torch.cat([x, x0], dim=-1), self.shared_proj[site].to(x.dtype))
+
+    def _shared_site(self, site: int, x, x0, cos, sin):
+        h, kv, _ = self._block(self.shared_attn, self._site_input(site, x, x0), cos, sin)
+        return _residual(x, h), kv
+
+    def _mamba_block(self, lp: MambaLayer, x):
+        return _residual(x, SSM.mamba2_forward(lp.mamba, _normed(lp.norm, x),
+                                                 self.cfg.ssm_chunk,
+                                                 decay_dtype=self.cfg.ssd_decay_dtype))
+
+    def _xlstm_block(self, lp: XLSTMLayer, x):
+        """xlstm's block → (its output, to be added to x, and its state)."""
+        cfg = self.cfg
+        h = _normed(lp.norm, x)
+        if lp.slstm is not None:
+            return XL.slstm_forward(lp.slstm, h, cfg.n_heads, return_state=True)
+        return XL.mlstm_forward(lp.mlstm, h, cfg.n_heads, cfg.mlstm_chunk, return_state=True)
 
     def _layers(self, x, cos, sin, cache=None):
         """Every layer over the full sequence → (x, the MoE layers' summed
         aux loss).  With ``cache``, write the attention K/V (mla_moe: the
         latent and the RoPE key) at positions [0, S) and, for the hybrid,
-        each Mamba2 layer's final state and conv cache."""
+        each Mamba2 layer's final state and conv cache.  Each block runs
+        under ``_remat``; the activation between blocks is constrained to
+        ("batch", "act_seq") where the reference constrains it."""
         cfg = self.cfg
         S = x.shape[1]
         aux_total = torch.zeros((), device=x.device)
@@ -353,14 +435,17 @@ class Model(nn.Module):
             positions = torch.arange(S, device=x.device)
             for i, lp in enumerate(self._mla_layers() if mla else self.layers):
                 if mla:
-                    x, (a, b), aux = self._mla_block(lp, x, positions)
+                    x, (a, b), aux = _remat(self._mla_block, cfg)(lp, x, positions)
                 else:
-                    x, (a, b), aux = self._block(lp, x, cos, sin)
+                    x, (a, b), aux = _remat(self._block, cfg)(lp, x, cos, sin)
+                # the reference leaves mla_moe's layer 0 and its prefill as they are
+                if not mla or (i and cache is None):
+                    x = L.lsc(x, "batch", "act_seq", None)
                 if aux is not None:
                     aux_total = aux_total + aux
                 if cache is not None:
-                    cache[names[0]][i, :, :S] = a
-                    cache[names[1]][i, :, :S] = b
+                    L.write_slice(cache[names[0]][i], 0, a)
+                    L.write_slice(cache[names[1]][i], 0, b)
             return x, aux_total
         if cfg.family == "xlstm":
             return self._xlstm_layers(x, cache), aux_total
@@ -369,19 +454,18 @@ class Model(nn.Module):
         for i, lp in enumerate(self.layers):
             if i in sites:
                 site = sites.index(i)
-                h, (k, v), _ = self._block(self.shared_attn, self._site_input(site, x, x0),
-                                           cos, sin)
-                x = x + h
+                x, (k, v) = _remat(self._shared_site, cfg)(site, x, x0, cos, sin)
                 if cache is not None:
-                    cache["k"][site, :, :S] = k
-                    cache["v"][site, :, :S] = v
-            args = (lp.mamba, lp.norm(x), cfg.ssm_chunk)
+                    L.write_slice(cache["k"][site], 0, k)
+                    L.write_slice(cache["v"][site], 0, v)
             if cache is None:
-                x = x + SSM.mamba2_forward(*args, decay_dtype=cfg.ssd_decay_dtype)
+                x = _remat(self._mamba_block, cfg)(lp, x)
             else:
                 out, (state, conv) = SSM.mamba2_forward(
-                    *args, return_state=True, decay_dtype=cfg.ssd_decay_dtype)
-                cache["ssm"][i], cache["conv"][i] = state, conv
+                    lp.mamba, _normed(lp.norm, x), cfg.ssm_chunk, return_state=True,
+                    decay_dtype=cfg.ssd_decay_dtype)
+                L.write_slice(cache["ssm"][i], 0, state)
+                L.write_slice(cache["conv"][i], 0, conv)
                 x = x + out
         return x, aux_total
 
@@ -391,19 +475,18 @@ class Model(nn.Module):
         cfg = self.cfg
         mi = si = 0
         for lp in self.layers:
-            h = lp.norm(x)
+            out, state = _remat(self._xlstm_block, cfg)(lp, x)
             if lp.slstm is not None:
-                out, state = XL.slstm_forward(lp.slstm, h, cfg.n_heads, return_state=True)
                 if cache is not None:
-                    cache["s_h"][si] = torch.stack(state)
+                    L.write_slice(cache["s_h"][si], 0, torch.stack(state))
                 si += 1
             else:
-                out, (C, n) = XL.mlstm_forward(lp.mlstm, h, cfg.n_heads, cfg.mlstm_chunk,
-                                               return_state=True)
+                C, n = state
                 if cache is not None:
-                    cache["C"][mi], cache["n"][mi] = C, n
+                    L.write_slice(cache["C"][mi], 0, C)
+                    L.write_slice(cache["n"][mi], 0, n)
                 mi += 1
-            x = x + out
+            x = _residual(x, out)
         return x
 
     # ------------------------------------------------------------ forward ----
@@ -426,14 +509,18 @@ class Model(nn.Module):
         mask = (targets >= 0).float()
         tgt = targets.clamp(min=0).long()
         logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        nll = -L.gather_last(logp, tgt)
         loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         return loss + 0.01 * aux, {"nll": loss, "aux": aux}
 
     # ------------------------------------------------------- prefill/decode ----
-    def init_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
+    def cache_layout(self, batch_size: int, max_len: int) -> Dict[str, tuple]:
+        """Every cache tensor's (shape, dtype, logical axes), the
+        reference's ``init_cache`` boxes (its leading axis stacks layers,
+        shared-attention sites for the hybrid's k and v)."""
         cfg = self.cfg
-        dev = self.embed.device
+        B, T = batch_size, max_len
+        f32, dt = torch.float32, cfg.dtype
         if cfg.family == "xlstm":
             # O(1) in the length: max_len is not used
             di = cfg.ssm_expand * cfg.d_model
@@ -441,32 +528,45 @@ class Model(nn.Module):
             Dh, dh = di // H, cfg.d_model // H
             n_s = sum(map(cfg.is_slstm, range(cfg.n_layers)))
             n_m = cfg.n_layers - n_s
-            f32 = torch.float32
-            return {"C": torch.zeros(n_m, batch_size, H, Dh, Dh, dtype=f32, device=dev),
-                    "n": torch.zeros(n_m, batch_size, H, Dh, dtype=f32, device=dev),
-                    "s_h": torch.zeros(max(n_s, 1), 3, batch_size, H, dh, dtype=f32,
-                                       device=dev),
-                    "pos": 0}
+            return {"C": ((n_m, B, H, Dh, Dh), f32, ("layers", "batch", None, None, None)),
+                    "n": ((n_m, B, H, Dh), f32, ("layers", "batch", None, None)),
+                    "s_h": ((max(n_s, 1), 3, B, H, dh), f32,
+                            ("layers", None, "batch", None, None))}
         if cfg.family in GQA_FAMILIES:
-            kv = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
-            return {"k": torch.zeros(kv, dtype=cfg.dtype, device=dev),
-                    "v": torch.zeros(kv, dtype=cfg.dtype, device=dev),
-                    "pos": 0}
+            kv = ((cfg.n_layers, B, T, cfg.n_kv_heads, cfg.head_dim), dt,
+                  ("layers", "batch", "seq_kv", "kv_heads", None))
+            return {"k": kv, "v": kv}
         if cfg.family == "mla_moe":
-            lat = (cfg.n_layers, batch_size, max_len)
-            return {"ckv": torch.zeros(*lat, cfg.kv_lora, dtype=cfg.dtype, device=dev),
-                    "kr": torch.zeros(*lat, cfg.rope_head_dim, dtype=cfg.dtype, device=dev),
-                    "pos": 0}
+            axes = ("layers", "batch", "seq_kv", None)
+            return {"ckv": ((cfg.n_layers, B, T, cfg.kv_lora), dt, axes),
+                    "kr": ((cfg.n_layers, B, T, cfg.rope_head_dim), dt, axes)}
         di = cfg.ssm_expand * cfg.d_model
         H = di // cfg.ssm_headdim
-        kv = (len(cfg.shared_sites()), batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"ssm": torch.zeros(cfg.n_layers, batch_size, H, cfg.ssm_state,
-                                   cfg.ssm_headdim, dtype=torch.float32, device=dev),
-                "conv": torch.zeros(cfg.n_layers, batch_size, 3, di, dtype=cfg.dtype,
-                                    device=dev),
-                "k": torch.zeros(kv, dtype=cfg.dtype, device=dev),
-                "v": torch.zeros(kv, dtype=cfg.dtype, device=dev),
-                "pos": 0}
+        kv = ((len(cfg.shared_sites()), B, T, cfg.n_kv_heads, cfg.head_dim), dt,
+              (None, "batch", "seq_kv", "kv_heads", None))
+        return {"ssm": ((cfg.n_layers, B, H, cfg.ssm_state, cfg.ssm_headdim), f32,
+                        ("layers", "batch", None, None, None)),
+                "conv": ((cfg.n_layers, B, 3, di), dt, ("layers", "batch", None, "ffn")),
+                "k": kv, "v": kv}
+
+    def init_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
+        """Zeros of ``cache_layout`` on the parameters' device, ``pos`` 0.
+        On a mesh (DTensor parameters, a resolver installed) each tensor is
+        a DTensor at the resolver's placements for its logical axes, made
+        shard by shard."""
+        resolver = L._ACT_RESOLVER.get()
+        mesh = resolver is not None and L._is_dtensor(self.embed)
+        cache: Dict[str, Any] = {}
+        for name, (shape, dtype, axes) in self.cache_layout(batch_size, max_len).items():
+            if mesh:
+                from torch.distributed.tensor import zeros
+
+                cache[name] = zeros(shape, dtype=dtype, device_mesh=resolver.mesh,
+                                    placements=resolver(axes, shape))
+            else:
+                cache[name] = torch.zeros(shape, dtype=dtype, device=self.embed.device)
+        cache["pos"] = 0
+        return cache
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: Optional[int] = None):

@@ -32,19 +32,23 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import make_param
-from .layers import MLP, mlp_forward
+from .layers import MLP, lsc, mlp_forward
 
 
 class MoE(nn.Module):
     def __init__(self, gen, d_model: int, d_ff_expert: int, n_experts: int,
                  n_shared: int = 0, device=None):
         super().__init__()
-        self.router = make_param(gen, (d_model, n_experts), d_model ** -0.5, device=device)
-        self.wg = make_param(gen, (n_experts, d_model, d_ff_expert), d_model ** -0.5,
+        self.router = make_param(gen, (d_model, n_experts), ("embed", None), d_model ** -0.5,
+                                 device=device)
+        self.wg = make_param(gen, (n_experts, d_model, d_ff_expert),
+                             ("experts", "embed", "ffn"), d_model ** -0.5,
                              device=device)
-        self.wu = make_param(gen, (n_experts, d_model, d_ff_expert), d_model ** -0.5,
+        self.wu = make_param(gen, (n_experts, d_model, d_ff_expert),
+                             ("experts", "embed", "ffn"), d_model ** -0.5,
                              device=device)
-        self.wd = make_param(gen, (n_experts, d_ff_expert, d_model), d_ff_expert ** -0.5,
+        self.wd = make_param(gen, (n_experts, d_ff_expert, d_model),
+                             ("experts", "ffn", "embed"), d_ff_expert ** -0.5,
                              device=device)
         self.shared = (MLP(gen, d_model, d_ff_expert * n_shared, device)
                        if n_shared > 0 else None)
@@ -119,10 +123,11 @@ def moe_forward(p: MoE, x, top_k: int, capacity_factor: float = 1.25):
     xf = x.reshape(B * S, D)
     r = route(p.router, xf, top_k, capacity_factor)
     E, C = r.token_idx.shape
-    expert_in = xf[r.token_idx.reshape(-1)].reshape(E, C, D)
+    expert_in = lsc(xf[r.token_idx.reshape(-1)].reshape(E, C, D), "experts", None, None)
     g = torch.einsum("ecd,edf->ecf", expert_in, p.wg.to(dt))
     u = torch.einsum("ecd,edf->ecf", expert_in, p.wu.to(dt))
-    out_e = torch.einsum("ecf,efd->ecd", F.silu(g) * u, p.wd.to(dt))
+    h = lsc(F.silu(g) * u, "experts", None, "ffn")
+    out_e = torch.einsum("ecf,efd->ecd", h, p.wd.to(dt))
     out_e = (out_e * r.gate[..., None].to(dt)).reshape(E * C, D)
     # each token's k contributions in the order of its choices; a dropped
     # slot adds 0
@@ -130,7 +135,7 @@ def moe_forward(p: MoE, x, top_k: int, capacity_factor: float = 1.25):
     out = contrib[:, 0]
     for j in range(1, top_k):
         out = out + contrib[:, j]
-    out = out.reshape(B, S, D)
+    out = lsc(out.reshape(B, S, D), "batch", "seq", None)
     if p.shared is not None:
         out = out + mlp_forward(p.shared, x)
     return out, r.aux_loss

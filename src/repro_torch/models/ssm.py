@@ -23,7 +23,7 @@ from torch import nn
 from ..kernels.ssd.ops import ssd
 from ..kernels.ssd.ref import ssd_scan_torch
 from .common import make_param
-from .layers import RMSNorm, rms_norm
+from .layers import RMSNorm, lsc, rms_norm
 
 
 class Mamba2(nn.Module):
@@ -31,18 +31,23 @@ class Mamba2(nn.Module):
                  headdim: int = 64, conv_width: int = 4, device=None):
         super().__init__()
         H = d_inner // headdim
-        self.wz = make_param(gen, (d_model, d_inner), d_model ** -0.5, device=device)
-        self.wx = make_param(gen, (d_model, d_inner), d_model ** -0.5, device=device)
-        self.conv_w = make_param(gen, (conv_width, d_inner), 0.5, device=device)
-        self.conv_b = make_param(gen, (d_inner,), init="zeros", device=device)
-        self.wB = make_param(gen, (d_model, n_state), d_model ** -0.5, device=device)
-        self.wC = make_param(gen, (d_model, n_state), d_model ** -0.5, device=device)
-        self.wdt = make_param(gen, (d_model, H), d_model ** -0.5, device=device)
-        self.dt_bias = make_param(gen, (H,), init="zeros", device=device)
-        self.a_log = make_param(gen, (H,), init="zeros", device=device)  # a = -exp(a_log)
-        self.d_skip = make_param(gen, (H,), init="ones", device=device)
+        self.wz = make_param(gen, (d_model, d_inner), ("embed", "ffn"), d_model ** -0.5,
+                             device=device)
+        self.wx = make_param(gen, (d_model, d_inner), ("embed", "ffn"), d_model ** -0.5,
+                             device=device)
+        self.conv_w = make_param(gen, (conv_width, d_inner), (None, "ffn"), 0.5, device=device)
+        self.conv_b = make_param(gen, (d_inner,), ("ffn",), init="zeros", device=device)
+        self.wB = make_param(gen, (d_model, n_state), ("embed", None), d_model ** -0.5,
+                             device=device)
+        self.wC = make_param(gen, (d_model, n_state), ("embed", None), d_model ** -0.5,
+                             device=device)
+        self.wdt = make_param(gen, (d_model, H), ("embed", None), d_model ** -0.5, device=device)
+        self.dt_bias = make_param(gen, (H,), (None,), init="zeros", device=device)
+        self.a_log = make_param(gen, (H,), (None,), init="zeros", device=device)  # a = -exp(a_log)
+        self.d_skip = make_param(gen, (H,), (None,), init="ones", device=device)
         self.out_norm = RMSNorm(d_inner, device)
-        self.wo = make_param(gen, (d_inner, d_model), d_inner ** -0.5, device=device)
+        self.wo = make_param(gen, (d_inner, d_model), ("ffn", "embed"), d_inner ** -0.5,
+                             device=device)
 
 
 def _causal_conv(x, w, b):
@@ -75,6 +80,7 @@ def mamba2_forward(p: Mamba2, x, chunk: int = 128, return_state: bool = False,
     z = torch.einsum("bsd,df->bsf", x, p.wz.to(dtype))
     raw = torch.einsum("bsd,df->bsf", x, p.wx.to(dtype))
     xb = F.silu(_causal_conv(raw, p.conv_w.to(dtype), p.conv_b.to(dtype)))
+    xb = lsc(xb, "batch", "seq", "ffn")
     B_ = x @ p.wB.to(dtype)
     C_ = x @ p.wC.to(dtype)
     dt, a = _dt_and_a(p, x)

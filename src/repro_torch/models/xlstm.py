@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import make_param
-from .layers import RMSNorm, rms_norm
+from .layers import RMSNorm, lsc, rms_norm
 
 
 # ---------------------------------------------------------------- mLSTM ----
@@ -45,15 +45,19 @@ class MLSTM(nn.Module):
         super().__init__()
         di = expand * d_model
         Dh = di // n_heads
-        self.w_up = make_param(gen, (d_model, 2 * di), d_model ** -0.5, device=device)
-        self.wq = make_param(gen, (n_heads, Dh, Dh), Dh ** -0.5, device=device)
-        self.wk = make_param(gen, (n_heads, Dh, Dh), Dh ** -0.5, device=device)
-        self.wv = make_param(gen, (n_heads, Dh, Dh), Dh ** -0.5, device=device)
-        self.wi = make_param(gen, (di, n_heads), di ** -0.5, device=device)
-        self.wf = make_param(gen, (di, n_heads), di ** -0.5, device=device)
-        self.f_bias = make_param(gen, (n_heads,), init="ones", device=device)
+        self.w_up = make_param(gen, (d_model, 2 * di), ("embed", "ffn"), d_model ** -0.5,
+                               device=device)
+        self.wq = make_param(gen, (n_heads, Dh, Dh), ("heads", None, None), Dh ** -0.5,
+                             device=device)
+        self.wk = make_param(gen, (n_heads, Dh, Dh), ("heads", None, None), Dh ** -0.5,
+                             device=device)
+        self.wv = make_param(gen, (n_heads, Dh, Dh), ("heads", None, None), Dh ** -0.5,
+                             device=device)
+        self.wi = make_param(gen, (di, n_heads), ("ffn", None), di ** -0.5, device=device)
+        self.wf = make_param(gen, (di, n_heads), ("ffn", None), di ** -0.5, device=device)
+        self.f_bias = make_param(gen, (n_heads,), (None,), init="ones", device=device)
         self.out_norm = RMSNorm(di, device)
-        self.w_down = make_param(gen, (di, d_model), di ** -0.5, device=device)
+        self.w_down = make_param(gen, (di, d_model), ("ffn", "embed"), di ** -0.5, device=device)
 
 
 def _mlstm_chunked(q, k, v, log_f, i_gate, chunk: int):
@@ -144,7 +148,7 @@ def _mlstm_qkvg(p: MLSTM, xm, n_heads: int):
 def mlstm_forward(p: MLSTM, x, n_heads: int, chunk: int = 128, return_state: bool = False):
     """x [B,S,D] → [B,S,D]; with ``return_state`` also (C_T, n_T) fp32."""
     dtype = x.dtype
-    up = torch.einsum("bsd,df->bsf", x, p.w_up.to(dtype))
+    up = lsc(torch.einsum("bsd,df->bsf", x, p.w_up.to(dtype)), "batch", "seq", "ffn")
     xm, z = up.chunk(2, dim=-1)
     q, k, v, log_f, i_gate = _mlstm_qkvg(p, xm, n_heads)
     y, state = _mlstm_chunked(q, k, v, log_f, i_gate, chunk)
@@ -176,11 +180,14 @@ class SLSTM(nn.Module):
     def __init__(self, gen, d_model: int, n_heads: int, device=None):
         super().__init__()
         dh = d_model // n_heads
-        self.wx = make_param(gen, (d_model, 4 * d_model), d_model ** -0.5, device=device)
-        self.r = make_param(gen, (n_heads, dh, 4 * dh), dh ** -0.5, device=device)
-        self.bias = make_param(gen, (4 * d_model,), init="zeros", device=device)
+        self.wx = make_param(gen, (d_model, 4 * d_model), ("embed", "ffn"), d_model ** -0.5,
+                             device=device)
+        self.r = make_param(gen, (n_heads, dh, 4 * dh), ("heads", None, None), dh ** -0.5,
+                            device=device)
+        self.bias = make_param(gen, (4 * d_model,), ("ffn",), init="zeros", device=device)
         self.out_norm = RMSNorm(d_model, device)
-        self.wo = make_param(gen, (d_model, d_model), d_model ** -0.5, device=device)
+        self.wo = make_param(gen, (d_model, d_model), ("embed", "embed2"), d_model ** -0.5,
+                             device=device)
 
 
 def slstm_cell_step(gx, r, h, c, n, n_heads: int):

@@ -7,7 +7,10 @@ update is computed in fp32 and cast back: p ← p − lr·(m̂/(√v̂ + ε) + w
 would be another update.  Parameters, gradients and moments are mappings
 from the port's parameter names to tensors; ``update`` writes the new
 parameters into the given tensors and the new moments into the state's, so
-no second copy of either is made.
+no second copy of either is made.  The moments are made ``zeros_like``
+their parameters, so on a mesh (DTensor parameters) they shard as their
+parameters do, the reference's ``opt_sh``; the step's scalars stay 0-dim
+tensors, which DTensor arithmetic takes as they are.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ class AdamW:
 
     def init(self, params: Mapping[str, torch.Tensor]) -> Dict:
         def zeros():
-            return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            return {k: torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
                     for k, p in params.items()}
 
         return {"m": zeros(), "v": zeros(), "count": 0}

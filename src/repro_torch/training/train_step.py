@@ -11,7 +11,9 @@ whose backward is plain torch (``kernels.flash_attention.ops``,
 first axis into that many microbatches, whose gradients are summed in fp32
 and divided by ``accum_steps``, as the reference's scan over microbatches
 does; with 1 the gradients keep the parameters' dtype, as ``jax.grad``'s
-do.
+do.  On a mesh (``distributed.sharding.distribute_model``) the parameters,
+gradients, moments and accumulation buffers are DTensors at the
+parameters' placements.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ def make_train_step(model: Model, opt: AdamW, accum_steps: int = 1):
         else:
             micro = [{k: v.chunk(accum_steps, dim=0)[i] for k, v in batch.items()}
                      for i in range(accum_steps)]
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            grads = {k: torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
                      for k, p in params.items()}
             loss = torch.zeros((), dtype=torch.float32, device=next(iter(params.values())).device)
             for mb in micro:

@@ -510,8 +510,9 @@ def test_ssd_gradients_through_the_function(cuda, route, dtype, P, N):
 def test_llama_train_step_on_the_card_matches_the_cpu(cuda):
     """One make_train_step of llama3.2-3b's smoke config in fp32
     activations, card against CPU on the same weights and batch: every
-    layer launches K2 (its scalar route: fp32) once and its plain backward
-    once; the loss within 1e-5 relative, every gradient (bf16) and moment
+    layer launches K2 (its scalar route: fp32) once in the forward and once
+    more in remat's recompute (the config's default, "full"), and its plain
+    backward once; the loss within 1e-5 relative, every gradient (bf16) and moment
     within 2**-7 relative L2, every parameter within one bf16 ulp plus two
     steps where a noise-level gradient flips (tests/_train_step_compare.py
     says why)."""
@@ -534,7 +535,8 @@ def test_llama_train_step_on_the_card_matches_the_cpu(cuda):
         state, metrics = step(opt.init(dict(model.named_parameters())),
                               {k: v.to(dev) for k, v in batch.items()})
         if dev != "cpu":
-            assert fa_ops.launches == launches + cfg.n_layers
+            assert (cfg.remat, cfg.remat_policy) == (True, "full")
+            assert fa_ops.launches == launches + 2 * cfg.n_layers
             assert fa_ops.backward_calls == calls + cfg.n_layers
         runs[str(dev)] = (float(metrics["loss"]), state,
                           {k: p.detach().cpu() for k, p in model.named_parameters()})
@@ -546,3 +548,52 @@ def test_llama_train_step_on_the_card_matches_the_cpu(cuda):
         want = pc[k].float()
         ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
         assert ((pg[k].float() - want).abs() <= 2 * 1e-2 * 1.1 + 2 * ulp).all(), k
+
+
+@pytest.fixture
+def card_mesh(cuda, tmp_path):
+    """The card's host mesh (1,) ("data",) over a one-rank NCCL group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_kernels_through_local_map_on_the_card_mesh(card_mesh):
+    """K2 and K3 given DTensors on the (1,) mesh run their kernel once each
+    on the local shards, with the meshless call's result bit for bit."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Resolver, activate
+
+    r = Resolver(get_config("llama3.2-3b"), card_mesh)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(2, 256, h, 128, generator=g, device="cuda").bfloat16()
+               for h in (8, 2, 2))
+    x = torch.randn(2, 256, 4, 64, generator=g, device="cuda").bfloat16()
+    dt = torch.rand(2, 256, 4, generator=g, device="cuda")
+    Bm, Cm = (torch.randn(2, 256, 64, generator=g, device="cuda").bfloat16() for _ in "BC")
+    a = -torch.rand(4, generator=g, device="cuda")
+
+    def on_mesh(t, axes):
+        return distribute_tensor(t, card_mesh, r(axes, t.shape))
+
+    attn = ("batch", "seq", "heads", None)
+    want_o = fa_ops.flash_attention(q, k, v)
+    want_y, want_s = ssd_ops.ssd(x, dt, Bm, Cm, a, 128)
+    fa0, ssd0 = fa_ops.launches_sm90, ssd_ops.launches_sm90
+    with activate(r):
+        o = fa_ops.flash_attention(*(on_mesh(t, attn) for t in (q, k, v)))
+        y, s = ssd_ops.ssd(on_mesh(x, attn), on_mesh(dt, attn[:3]),
+                           on_mesh(Bm, ("batch", "seq", None)),
+                           on_mesh(Cm, ("batch", "seq", None)), on_mesh(a, ("heads",)), 128)
+    assert (fa_ops.launches_sm90 - fa0, ssd_ops.launches_sm90 - ssd0) == (1, 1)
+    assert torch.equal(o.full_tensor(), want_o)
+    assert torch.equal(y.full_tensor(), want_y) and torch.equal(s.full_tensor(), want_s)

@@ -413,7 +413,7 @@ COPIED = ([f"core/{m}.py" for m in (
     + [f"obs/{m}.py" for m in ("trace", "metrics", "__init__")]
     + [f"analysis/{m}.py" for m in ("core", "durability", "fencing", "lockrules",
                                     "locktrace", "obsrules", "seams", "__init__")]
-    + ["training/data.py"]
+    + ["training/data.py", "distributed/compression.py"]
     + [f"configs/{p.name}" for p in sorted((SRC / "repro" / "configs").glob("*.py"))])
 _IMPORT = re.compile(r"^(\s*)(from|import)\s+repro\.")
 
