@@ -10,6 +10,15 @@
 // final state in fp32.  The mask selects before the exp, so exp(L_i - L_j)
 // is never formed above the diagonal, where it overflows for long chunks.
 //
+// With a bf16 decay (the reference's `_ssd_chunked(decay_dtype=bf16)`,
+// src/repro/models/ssm.py:80-90) the intra-chunk term is formed as it forms
+// it: M_ij = bf16(C_i . B_j) * bf16(exp(bf16(bf16(L_i) - bf16(L_j)))) for
+// i >= j, times bf16(x_j * dt_j), accumulated in fp32 (the product of two
+// bf16 values is exact in fp32).  L is then a sequential sum of the fp32
+// products a * dt in step order, as torch's cumsum forms it, so that its
+// bf16 rounding is the plain version's.  The state weights, the pass across
+// chunks and exp(L_i) stay fp32, as in the reference.
+//
 // Design.  The TPU kernel walks (head, chunk) on a grid whose chunk axis is
 // sequential and carries the [N, P] state in VMEM scratch.  Here one block
 // owns one (batch, head) and loops over the chunks itself, with the state in
@@ -82,7 +91,11 @@ __host__ __device__ inline size_t smem_floats(int Q, int N, int P) {
          + 4 * (size_t)Q;           // dt, L, exp(L_last - L) * dt, exp(L)
 }
 
-template <typename T>
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename T, bool kBf16Decay>
 __global__ void __launch_bounds__(kThreads) ssd_fwd(Args g) {
   extern __shared__ float smem[];
   const int N = g.N, P = g.P, Q = g.Q, S = g.S, H = g.H;
@@ -125,10 +138,15 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd(Args g) {
     for (int r = tid; r < Q; r += kThreads) sDt[r] = r < rows ? dt[(s0 + r) * g.dss] : 0.f;
     __syncthreads();
 
-    // L = inclusive cumsum of a * dt over the chunk, by warp 0
+    // L = inclusive cumsum of a * dt over the chunk, by warp 0 (a bf16
+    // decay: by its lane 0, in step order, unfused)
+    if (kBf16Decay && tid == 0) {
+      float run = 0.f;
+      for (int r = 0; r < Q; ++r) sL[r] = run = __fadd_rn(run, __fmul_rn(a, sDt[r]));
+    }
     if (tid < 32) {
       float carry = 0.f;
-      for (int base = 0; base < Q; base += 32) {
+      for (int base = 0; base < Q && !kBf16Decay; base += 32) {
         const int r = base + tid;
         float v = r < Q ? a * sDt[r] : 0.f;
 #pragma unroll
@@ -182,7 +200,12 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd(Args g) {
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int j = j0 + tx + 16 * c;
-            if (i < Q && j < Q)
+            if (i < Q && j < Q && kBf16Decay)
+              sM[i * Q + j] = i >= j ? bf16_round(acc[r][c]) *
+                                           bf16_round(expf(bf16_round(bf16_round(sL[i]) -
+                                                                      bf16_round(sL[j]))))
+                                     : 0.f;
+            else if (i < Q && j < Q)
               sM[i * Q + j] = i >= j ? acc[r][c] * expf(sL[i] - sL[j]) * sDt[j] : 0.f;
           }
         }
@@ -190,7 +213,8 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd(Args g) {
     }
     __syncthreads();
 
-    // y_i = sum_{j <= i} M_ij x_j + exp(L_i) * C_i . h_in
+    // y_i = sum_{j <= i} M_ij x_j + exp(L_i) * C_i . h_in (a bf16 decay:
+    // M_ij bf16(x_j dt_j))
     for (int i0 = 0; i0 < Q; i0 += kPass) {
       const int jend = min(Q, i0 + kPass);  // M is zero past the diagonal
       for (int p0 = 0; p0 < P; p0 += kPass) {
@@ -207,7 +231,7 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd(Args g) {
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
             mv[k] = sM[ir[k] * Q + j];
-            xv[k] = sX[j * P + pc[k]];
+            xv[k] = kBf16Decay ? bf16_round(sX[j * P + pc[k]] * sDt[j]) : sX[j * P + pc[k]];
           }
 #pragma unroll
           for (int r = 0; r < 4; ++r)
@@ -285,13 +309,13 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd(Args g) {
   for (int i = tid; i < N * P; i += kThreads) st[i] = sH[i];
 }
 
-template <typename T>
+template <typename T, bool kBf16Decay>
 cudaError_t launch(const Args& g, cudaStream_t stream) {
   const size_t smem = smem_floats(g.Q, g.N, g.P) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(ssd_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(ssd_fwd<T, kBf16Decay>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  ssd_fwd<T><<<g.B * g.H, kThreads, smem, stream>>>(g);
+  ssd_fwd<T, kBf16Decay><<<g.B * g.H, kThreads, smem, stream>>>(g);
   return cudaGetLastError();
 }
 
@@ -302,14 +326,15 @@ extern "C" {
 // x [B,S,H,P], dt [B,S,H], Bm and Cm [B,S,N] with unit stride on their last
 // dims and the given element strides on the others; a [H]; y contiguous
 // [B,S,H,P] in x's dtype, state contiguous [B,H,N,P] fp32; chunks of Q steps.
-// is_bf16 selects bf16 x, Bm, Cm and y, else fp32.  Launches on `stream`
-// and returns cudaGetLastError() without synchronising.
+// is_bf16 selects bf16 x, Bm, Cm and y, else fp32; bf16_decay the bf16
+// decay of the intra-chunk term, else fp32.  Launches on `stream` and
+// returns cudaGetLastError() without synchronising.
 int ssd_scan_launch(const void* x, const void* dt, const void* Bm, const void* Cm,
                     const void* a, void* y, void* state, int B, int S, int H, int P,
                     int N, int Q, long long xsb, long long xss, long long xsh,
                     long long dsb, long long dss, long long dsh, long long bsb,
                     long long bss, long long csb, long long css, int is_bf16,
-                    void* stream) {
+                    int bf16_decay, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || Q <= 0 || Q > kMaxChunk ||
       Q > S || smem_floats(Q, N, P) * sizeof(float) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
@@ -317,7 +342,9 @@ int ssd_scan_launch(const void* x, const void* dt, const void* Bm, const void* C
          static_cast<float*>(state), B, S, H, P, N, Q, xsb, xss, xsh, dsb, dss, dsh,
          bsb, bss, csb, css};
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(is_bf16 ? launch<__nv_bfloat16>(g, s) : launch<float>(g, s));
+  if (bf16_decay)
+    return (int)(is_bf16 ? launch<__nv_bfloat16, true>(g, s) : launch<float, true>(g, s));
+  return (int)(is_bf16 ? launch<__nv_bfloat16, false>(g, s) : launch<float, false>(g, s));
 }
 
 const char* ssd_scan_error_string(int err) {

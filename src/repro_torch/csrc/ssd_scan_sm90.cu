@@ -43,6 +43,16 @@
 // terms with the same grouping.  A ragged last chunk, or Q that is not a
 // multiple of 16, is padded by bounds: rows past the chunk load as dt = 0,
 // x = B = C = 0, which leaves L, y and the state unchanged.
+// With a bf16 decay (the reference's `_ssd_chunked(decay_dtype=bf16)`,
+// src/repro/models/ssm.py:80-90; template flag kBf16Decay of the third
+// kernel) M . x is formed as the reference forms it: M_ij = bf16(G_ij) *
+// bf16(exp(bf16(bf16(L_i) - bf16(L_j)))) for i >= j, times bf16(x_j dt_j),
+// which the kernel writes over each head's x tile before its products; the
+// product of two bf16 values has at most 16 significant bits, so M's two
+// bf16 terms hold it exactly.  L is then summed by one lane in step order,
+// unfused, as torch's cumsum sums it, so that its bf16 rounding is the
+// plain version's.  The state weights, the pass across chunks and exp(L_i)
+// stay fp32, as in the reference.
 // This design moves about 235 MB (x twice, the scratch through memory four
 // times), three times the function's 73 MB; a single pass that hands h from
 // chunk to chunk in order is the way to the bound.
@@ -300,9 +310,33 @@ __global__ void __launch_bounds__(kThreads) ssd_sm90_state_pass(const Args g, in
   *reinterpret_cast<float4*>(g.state + (long long)bh * kDD + e) = hc;
 }
 
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Row r of a swizzled [Qt, 64] bf16 tile times s[r], rounded to bf16, in place
+__device__ __forceinline__ void scale_rows(uint32_t tile, const float* s, int Qt) {
+  for (int i = threadIdx.x; i < Qt * 8; i += kThreads) {
+    const int r = i >> 3;
+    const uint32_t addr = tile + swz(r, i & 7);
+    uint32_t v[4];
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3]) : "r"(addr) : "memory");
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 f = unpack(v[q]);
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f.x * s[r], f.y * s[r]);
+      v[q] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                 :: "r"(addr), "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]) : "memory");
+  }
+}
+
 // ---- 3. y ---------------------------------------------------------------------
 // Grid (nc, head tiles, B).  Warp w owns the 16 rows of row tile w and all 64
 // columns p of y.
+template <bool kBf16Decay>
 __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g) {
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t sC = smem_u32(smem);
@@ -359,7 +393,13 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g)
       reinterpret_cast<float4*>(sG)[(t * 2 + n8) * 32 + lane] =
           make_float4(acc[n8][0], acc[n8][1], acc[n8][2], acc[n8][3]);
   }
-  if (warp < nh) cumsum_warp(sDt + warp * kMaxQ, sL + warp * kMaxQ, g.a[h0 + warp], Qt, lane);
+  if (warp < nh && !kBf16Decay)
+    cumsum_warp(sDt + warp * kMaxQ, sL + warp * kMaxQ, g.a[h0 + warp], Qt, lane);
+  if (warp < nh && kBf16Decay && lane == 0) {
+    const float a = g.a[h0 + warp], *sdt = sDt + warp * kMaxQ;
+    float* L = sL + warp * kMaxQ, run = 0.f;
+    for (int r = 0; r < Qt; ++r) L[r] = run = __fadd_rn(run, __fmul_rn(a, sdt[r]));
+  }
   __syncthreads();  // G and L are ready; B's tile is free for h_in
 
   // Row tile ti has ti + 1 column tiles of M . x.  Warps w and w + 4 share
@@ -394,6 +434,10 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g)
     const uint32_t sXk = sX + (k & 1) * kTileBytes;
     const float* L = sL + k * kMaxQ;
     const float* dtk = sDt + k * kMaxQ;
+    if (kBf16Decay) {
+      scale_rows(sXk, dtk, Qt);  // x_j dt_j in bf16
+      __syncthreads();
+    }
 
     if (ti < nt) {
       float acc[8][4] = {};
@@ -437,6 +481,10 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g)
         const float2 dj = *reinterpret_cast<const float2*>(dtk + j0);
         const float2 dj8 = *reinterpret_cast<const float2*>(dtk + j0 + 8);
         auto m = [](float gv, int i, float li, int j, float lj, float dtj) {
+          if (kBf16Decay)
+            return i >= j ? bf16_round(gv) *
+                                bf16_round(expf(bf16_round(bf16_round(li) - bf16_round(lj))))
+                          : 0.f;
           return i >= j ? gv * __expf(li - lj) * dtj : 0.f;
         };
         uint32_t ahi[4], alo[4];
@@ -480,6 +528,15 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g)
 constexpr int kSmemState = 3 * kTileBytes + 2 * kHT * kMaxQ * 4;
 constexpr int kSmemScan = 4 * kTileBytes + kGTiles * 256 * 4 + 2 * kHT * kMaxQ * 4;
 
+template <bool kBf16Decay>
+cudaError_t launch_scan(const Args& g, dim3 grid, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(ssd_sm90_chunk_scan<kBf16Decay>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemScan);
+  if (e != cudaSuccess) return e;
+  ssd_sm90_chunk_scan<kBf16Decay><<<grid, kThreads, kSmemScan, s>>>(g);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -488,7 +545,8 @@ extern "C" {
 // the last dim and the given element strides on the others (of x, Bm and Cm
 // multiples of 8, their bases 16-byte aligned), a [H] fp32; y contiguous
 // [B,S,H,64] bf16, state contiguous [B,H,64,64] fp32; scratch [B,nc,H,64,64]
-// and decay [B,nc,H] fp32, nc = ceil(S / Q); chunks of Q <= 128 steps.
+// and decay [B,nc,H] fp32, nc = ceil(S / Q); chunks of Q <= 128 steps;
+// bf16_decay selects the bf16 decay of the intra-chunk term, else fp32.
 // Launches three kernels on `stream` and returns cudaGetLastError() without
 // synchronising.
 int ssd_scan_sm90_launch(const void* x, const void* dt, const void* Bm, const void* Cm,
@@ -496,7 +554,7 @@ int ssd_scan_sm90_launch(const void* x, const void* dt, const void* Bm, const vo
                          int B, int S, int H, int Q, long long xsb, long long xss,
                          long long xsh, long long dsb, long long dss, long long dsh,
                          long long bsb, long long bss, long long csb, long long css,
-                         void* stream) {
+                         int bf16_decay, void* stream) {
   auto bad_stride = [](long long stride, int size) { return size > 1 && stride % 8 != 0; };
   if (B <= 0 || S <= 0 || H <= 0 || Q <= 0 || Q > kMaxQ || Q > S || B > 65535 ||
       (H + kHT - 1) / kHT > 65535 || ((uintptr_t)x | (uintptr_t)Bm | (uintptr_t)Cm) % 16 ||
@@ -513,9 +571,6 @@ int ssd_scan_sm90_launch(const void* x, const void* dt, const void* Bm, const vo
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaFuncSetAttribute(ssd_sm90_chunk_state,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemState);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(ssd_sm90_chunk_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemScan);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(nc, (H + kHT - 1) / kHT, B);
   ssd_sm90_chunk_state<<<grid, kThreads, kSmemState, s>>>(g);
@@ -523,8 +578,7 @@ int ssd_scan_sm90_launch(const void* x, const void* dt, const void* Bm, const vo
   const int n_threads = B * H * (kDD / 4);
   ssd_sm90_state_pass<<<(n_threads + kThreads - 1) / kThreads, kThreads, 0, s>>>(g, n_threads);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  ssd_sm90_chunk_scan<<<grid, kThreads, kSmemScan, s>>>(g);
-  return (int)cudaGetLastError();
+  return (int)(bf16_decay ? launch_scan<true>(g, grid, s) : launch_scan<false>(g, grid, s));
 }
 
 const char* ssd_scan_sm90_error_string(int err) {

@@ -44,6 +44,7 @@ launches_scalar = 0
 backward_calls = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
+DECAY_DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232_448    # bytes of shared memory a block may opt into on sm_90
 MAX_CHUNK = 128         # the kernels' tiles hold at most 128 steps
 SM90_DIMS = (64,)       # N = P of the sm90 route
@@ -89,12 +90,11 @@ def route(x, Bm) -> str:
 
 def ssd_plain(x, dt, Bm, Cm, a, chunk: int = 128,
               decay_dtype: torch.dtype = torch.float32):
-    """The plain version of the route that the inputs take: the sm90 route
-    splits its fp32 operands into two bf16 terms, the scalar route keeps
-    them fp32.  A decay in another type than fp32 has no kernel (ROADMAP.md
-    §2 item 4), so no route: it takes the unsplit form, the reference's."""
-    split = PLAIN_ARGS[route(x, Bm)] if decay_dtype == torch.float32 else {}
-    return ssd_scan_torch(x, dt, Bm, Cm, a, chunk, decay_dtype=decay_dtype, **split)
+    """The plain version of the route that the inputs take, with either
+    decay: the sm90 route splits its fp32 operands into two bf16 terms, the
+    scalar route keeps them fp32."""
+    return ssd_scan_torch(x, dt, Bm, Cm, a, chunk, decay_dtype=decay_dtype,
+                          **PLAIN_ARGS[route(x, Bm)])
 
 
 def copy_check(x, Bm, Cm) -> None:
@@ -121,11 +121,12 @@ def _chunk(chunk: int, S: int) -> int:
     return Q
 
 
-def _decay_float32(decay_dtype) -> None:
-    if decay_dtype != torch.float32:
-        raise NotImplementedError(
-            f"ssd: decay_dtype {decay_dtype}: the SSD kernels compute their decay in "
-            "float32 only (ROADMAP.md, §2, 'K3: decay_dtype on the card')")
+def _bf16_decay(decay_dtype) -> int:
+    """The kernels' decay flag: 1 for a bf16 decay, 0 for fp32."""
+    if decay_dtype not in DECAY_DTYPES:
+        raise ValueError(f"ssd: decay_dtype {decay_dtype}: the kernels take one of "
+                         f"{DECAY_DTYPES}")
+    return int(decay_dtype == torch.bfloat16)
 
 
 def ssd_sm90(x, dt, Bm, Cm, a, chunk: int = 128,
@@ -142,7 +143,7 @@ def ssd_sm90(x, dt, Bm, Cm, a, chunk: int = 128,
     if route(x, Bm) != "sm90":
         raise ValueError(f"ssd sm90: takes bf16 with N = P in {SM90_DIMS}, not "
                          f"{x.dtype} with P {x.shape[-1]}, N {Bm.shape[-1]}")
-    _decay_float32(decay_dtype)
+    flag = _bf16_decay(decay_dtype)
     copy_check(x, Bm, Cm)
     if not a.is_contiguous():
         raise ValueError("ssd sm90: a must be contiguous")
@@ -161,7 +162,7 @@ def ssd_sm90(x, dt, Bm, Cm, a, chunk: int = 128,
             y.data_ptr(), state.data_ptr(), scratch.data_ptr(), decay.data_ptr(),
             B, S, H, Q, x.stride(0), x.stride(1), x.stride(2),
             dt.stride(0), dt.stride(1), dt.stride(2),
-            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1), flag,
             torch.cuda.current_stream().cuda_stream)
     _cuda.check(err, lib, "ssd_scan_sm90")
     launches += 1
@@ -176,7 +177,7 @@ def ssd_scalar(x, dt, Bm, Cm, a, chunk: int = 128,
     _check(x, dt, Bm, Cm, a)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {x.device}")
-    _decay_float32(decay_dtype)
+    flag = _bf16_decay(decay_dtype)
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = _chunk(chunk, S)
@@ -195,7 +196,7 @@ def ssd_scalar(x, dt, Bm, Cm, a, chunk: int = 128,
             x.stride(0), x.stride(1), x.stride(2),
             dt.stride(0), dt.stride(1), dt.stride(2),
             Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+            int(x.dtype == torch.bfloat16), flag, torch.cuda.current_stream().cuda_stream)
     _cuda.check(err, lib, "ssd_scan")
     launches += 1
     launches_scalar += 1
@@ -233,8 +234,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         a: torch.Tensor, chunk: int = 128, decay_dtype: torch.dtype = torch.float32):
     """x [B,S,H,P], dt [B,S,H], Bm/Cm [B,S,N] (shared across heads), a [H]
     → (y [B,S,H,P] in x's dtype, state [B,H,N,P] fp32), in chunks of
-    min(chunk, S) steps.  ``decay_dtype`` is the plain version's (see
-    ``ssd_scan_torch``); the kernels compute their decay in fp32 only.
+    min(chunk, S) steps.  ``decay_dtype`` (fp32 or bf16, both kernels) is
+    the type of the intra-chunk decay (see ``ssd_scan_torch``).
     Differentiable: on the card through ``SSDFn``, on the CPU as plain
     torch.  On DTensors, per rank on the local shards (``kernels._mesh``)."""
     if _mesh.is_dtensor(x):

@@ -35,9 +35,9 @@ def ssd_scan_torch(x, dt, Bm, Cm, a, chunk: int = 128,
     steps: L = cumsum(a·dt); y = ((C·Bᵀ) ∘ exp(L_i − L_j) ∘ dt_j, i ≥ j)·x
     + exp(L_i)·C·h_in; h_out = exp(L_last)·h_in + Σ_j exp(L_last − L_j)·dt_j
     ·B_j⊗x_j.  A ragged last chunk is padded with dt = 0, which leaves the
-    result unchanged.  ``decay_dtype`` (the JAX package's hill-climb lever
-    on its CPU path; the kernel has none) sets the type of the decay tile
-    and of the intra-chunk product's operands, which accumulate in fp32.
+    result unchanged.  ``decay_dtype`` (the JAX package's hill-climb lever;
+    both kernels take fp32 and bf16) sets the type of the decay tile and of
+    the intra-chunk product's operands, which accumulate in fp32.
 
     ``split=True`` is the plain version of the sm90 kernel, which multiplies
     on the bf16 tensor cores: each of its three products with an fp32
@@ -45,11 +45,14 @@ def ssd_scan_torch(x, dt, Bm, Cm, a, chunk: int = 128,
     as the kernel groups them: the mixing tile M_ij = (C_i·B_j)·exp(L_i −
     L_j)·dt_j (dt goes into M, not into x), the state weights
     exp(L_last − L_j)·dt_j·B_j, and h_in, with exp(L_i) applied after C·h_in.
-    It computes the decay in fp32 only."""
-    if split and decay_dtype != torch.float32:
-        raise NotImplementedError(
-            f"ssd_scan_torch: split=True (the sm90 kernel's plain version) computes "
-            f"its decay in float32 only, not {decay_dtype}")
+    With ``decay_dtype=torch.bfloat16`` both kernels form the intra-chunk
+    term as the reference's ``_ssd_chunked`` does with a bf16 decay: L, the
+    difference L_i − L_j (masked before the exp) and the exp each rounded to
+    bf16, G = C·Bᵀ and x·dt rounded to bf16, the products accumulated in
+    fp32; dt goes into x, not into M; L is summed in step order.  M = bf16(G)·bf16(exp) has at most 16
+    significant bits, so its two bf16 terms hold it exactly and the split
+    form differs from the unsplit one in the order of the sums alone.  The
+    state weights, the pass across chunks and exp(L_i) stay fp32."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -66,7 +69,17 @@ def ssd_scan_torch(x, dt, Bm, Cm, a, chunk: int = 128,
     Bc = Bf.reshape(Bsz, nc, Q, N)
     Cc = Cf.reshape(Bsz, nc, Q, N)
     dtc = dtf.reshape(Bsz, nc, Q, H)
-    L = torch.cumsum(dtc * a.to(f32), dim=2)              # [b,c,q,h]
+    if decay_dtype == f32:
+        L = torch.cumsum(dtc * a.to(f32), dim=2)          # [b,c,q,h]
+    else:
+        # in fp32 step order, as both kernels sum it for a bf16 decay, so
+        # that the bf16 rounding of L is theirs on any device (torch's
+        # cumsum on the CPU does not sum in fp32 step order)
+        la, run, steps = dtc * a.to(f32), 0.0, []
+        for r in range(Q):
+            run = run + la[:, :, r]
+            steps.append(run)
+        L = torch.stack(steps, dim=2)
     Llast = L[:, :, -1]                                   # [b,c,h]
 
     # intra-chunk (i >= j): the exponent is masked before the exp
@@ -75,9 +88,13 @@ def ssd_scan_torch(x, dt, Bm, Cm, a, chunk: int = 128,
     diff = Ld[:, :, :, None, :] - Ld[:, :, None, :, :]    # [b,c,i,j,h]
     causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
     decay = torch.exp(diff.masked_fill(~causal[:, :, None], float("-inf")))
-    if split:
+    if split and decay_dtype == torch.float32:
         M = G[..., None] * decay * dtc[:, :, None]          # [b,c,i,j,h]
         y = sum(torch.einsum("bcijh,bcjhp->bcihp", m, xc) for m in split_bf16(M))
+    elif split:
+        M = G.to(decay_dtype).float()[..., None] * decay.float()     # exact in fp32
+        xdt = (xc * dtc[..., None]).to(decay_dtype).float()
+        y = sum(torch.einsum("bcijh,bcjhp->bcihp", m, xdt) for m in split_bf16(M))
     else:
         xdt = xc * dtc[..., None]
         y = torch.einsum("bcij,bcijh,bcjhp->bcihp", G.to(decay_dtype).to(f32),

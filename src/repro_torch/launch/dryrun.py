@@ -20,6 +20,16 @@ A step whose op has no DTensor sharding strategy ends ``status: "failed"``
 with the op in ``error``, as the reference records a failed compile; no
 cell runs unsharded.
 
+xlstm's sLSTM blocks scan the sequence one cell step a token, and the
+trace unrolls the scan (a 2-layer train_4k cell: 634.5 s of one CPU core,
+against 33.5 s extrapolated; the full depth about an hour a trace).  Where a
+cell has sLSTM blocks and more than one token a sequence, it is traced
+twice, each scan taking its first 1 and 2 steps (``models.xlstm.scan_steps``),
+and the FLOPs, bytes, collective bytes and temporary memory are
+extrapolated linearly to S steps, as ``analyze_cell`` extrapolates probes
+over depth; the result says so in ``slstm_steps_extrapolated`` (S) and
+never drops the blocks from the count.
+
 Usage:
     python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--both-meshes] [--no-probe]
@@ -43,6 +53,7 @@ from repro_torch.distributed.sharding import Resolver, activate, distribute_mode
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import batch_specs
 from repro_torch.models import Model
+from repro_torch.models import xlstm as XL
 from repro_torch.training.optimizer import AdamW
 from repro_torch.training.train_step import (make_decode_step, make_prefill_step,
                                              make_train_step)
@@ -154,21 +165,28 @@ def dryrun_cell(arch: str, shape: str, multi_pod: bool = False,
     n_dev = mesh.size()
     resolver = Resolver(cfg, mesh, overrides=overrides)
     kind = SHAPES[shape]["kind"]
+    steps = slstm_steps(cfg, shape)
     t0 = time.time()
     try:
         mode = FakeTensorMode()
         with mode:
             model = Model(cfg, device="meta")
             distribute_model(model, resolver)
-        gm, args = _trace(kind, model, cfg, shape, resolver, mode, accum_steps)
-        with mode:
-            cost = cost_of(gm, args)
+        traced = []
+        for n in ((1, 2) if steps else (None,)):
+            with XL.scan_steps(n):
+                gm, args = _trace(kind, model, cfg, shape, resolver, mode, accum_steps)
+                with mode:
+                    traced.append((cost_of(gm, args), collective_bytes(gm), memory_of(gm)))
     except Exception as e:  # noqa: BLE001
         traceback.print_exc()
         return {"arch": arch, "shape": shape, "status": "failed",
                 "multi_pod": multi_pod, "error": f"{type(e).__name__}: {e}"[:2000]}
-    mem = memory_of(gm)
-    coll = collective_bytes(gm)
+    cost, coll, mem = traced[0]
+    if steps:
+        cost, coll, mem = ({k: v + (traced[1][i][k] - v) * (steps - 1) for k, v in d.items()}
+                           for i, d in enumerate(traced[0]))
+        mem["peak_est_bytes"] = mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
     terms = roofline_terms(cost, coll, n_dev)
 
     # analytic model FLOPs
@@ -194,7 +212,17 @@ def dryrun_cell(arch: str, shape: str, multi_pod: bool = False,
         "roofline": terms,
         "dominant": max(("t_compute", "t_memory", "t_collective"),
                         key=lambda k: terms[k]),
+        **({"slstm_steps_extrapolated": steps} if steps else {}),
     }
+
+
+def slstm_steps(cfg, shape: str) -> int:
+    """S where the cell's sLSTM scans are traced at 1 and 2 steps and
+    extrapolated to S (xlstm with sLSTM blocks, more than one token a
+    sequence), else 0."""
+    S = 1 if SHAPES[shape]["kind"] == "decode" else SHAPES[shape]["seq"]
+    has_slstm = cfg.family == "xlstm" and any(map(cfg.is_slstm, range(cfg.n_layers)))
+    return S if has_slstm and S > 1 else 0
 
 
 def model_attention_flops(cfg, shape: str) -> float:

@@ -111,7 +111,11 @@ def _einsum_on_mesh(eq: str, a, b, local=None):
     dim the operand ``a`` (the activation) keeps its split, ``b`` follows
     it (a weight split elsewhere there is gathered: FSDP's all-gather), the
     output is split where the split letter survives and partial where it is
-    summed over.  Each rank then runs the plain einsum on its shards inside
+    summed over.  Where ``a`` is whole and ``b`` split on a letter summed
+    over, ``b`` is gathered if it is no larger than twice the output (the
+    all-reduce a partial output would take), as the MoE's expert weights
+    are against their [E, C, ·] rows at training shapes; else ``a`` follows
+    it.  Each rank then runs the plain einsum on its shards inside
     ``local_map`` (``local``, the same product in another form, where
     given), so no reshape of a split dim reaches DTensor's sharding
     propagation, in the forward or the backward (which cannot unflatten 24
@@ -131,9 +135,14 @@ def _einsum_on_mesh(eq: str, a, b, local=None):
     def letter(spec, p):
         return spec[p.dim] if isinstance(p, Shard) else None
 
+    sizes = {**dict(zip(sb, b.shape)), **dict(zip(sa, a.shape))}
+    gather_b = b.numel() <= 2 * math.prod(sizes[c] for c in out)
     pa, pb, po, ga, gb = [], [], [], [], []
     for i in range(mesh.ndim):
         lead = letter(sa, a.placements[i]) or letter(sb, b.placements[i])
+        if (lead is not None and letter(sa, a.placements[i]) is None and lead not in out
+                and gather_b):
+            lead = None     # gathering b moves fewer bytes than reducing the output
         if lead is None:
             for p in (pa, pb, po, ga, gb):
                 p.append(Replicate())

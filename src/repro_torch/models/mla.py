@@ -17,8 +17,8 @@ import torch
 from torch import nn
 
 from .common import make_param
-from .layers import (RMSNorm, apply_rope, attention, einsum, lsc, rms_norm, rope_angles,
-                     write_slice)
+from .layers import (RMSNorm, apply_rope, attention, einsum, lsc, matmul, rms_norm,
+                     rope_angles, write_slice)
 
 
 class MLA(nn.Module):
@@ -48,7 +48,7 @@ class MLA(nn.Module):
 
 def _queries(p: MLA, x, cos, sin, nope_dim):
     dt = x.dtype
-    cq = rms_norm(x @ p.wdq.to(dt), p.q_norm.w)
+    cq = rms_norm(matmul(x, p.wdq.to(dt)), p.q_norm.w)
     q = einsum("bsq,qhk->bshk", cq, p.wuq.to(dt))
     return q[..., :nope_dim], apply_rope(q[..., nope_dim:], cos, sin)
 
@@ -57,8 +57,8 @@ def _latent(p: MLA, x, cos, sin):
     """The cache's two entries for x: c_kv [B,S,kvl] and the RoPE key
     [B,S,1,rope]."""
     dt = x.dtype
-    ckv = rms_norm(x @ p.wdkv.to(dt), p.kv_norm.w)
-    kr = apply_rope((x @ p.wkr.to(dt))[:, :, None, :], cos, sin)
+    ckv = rms_norm(matmul(x, p.wdkv.to(dt)), p.kv_norm.w)
+    kr = apply_rope(matmul(x, p.wkr.to(dt))[:, :, None, :], cos, sin)
     return ckv, kr
 
 
@@ -79,7 +79,7 @@ def mla_forward(p: MLA, x, positions, nope_dim=128, rope_dim=64, rope_theta=1000
     k = lsc(k, "batch", "seq", "heads", None)
     attn = attention(q, k, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk,
                      unroll=unroll)
-    out = torch.einsum("bshk,hkd->bsd", attn, p.wo.to(dt))
+    out = einsum("bshk,hkd->bsd", attn, p.wo.to(dt))
     return out, (ckv, kr[:, :, 0, :])
 
 

@@ -46,6 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..kernels import _mesh
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
@@ -239,6 +240,24 @@ def _residual(x, h):
     return x + L.lsc(h, "batch", "seq", None)
 
 
+def _scatter_patches(x, where, patches):
+    """x [B,S,D] with row b's positions ``where`` [B,P] replaced by
+    ``patches`` [B,P,D] cast to x's dtype.  On a mesh each rank writes its
+    own batch rows (x, where and patches are all split on the batch): the
+    reference's scatter (``src/repro/models/model.py:284-289``), which
+    DTensor's ``index_put_`` has no strategy for."""
+    def local(x, where, patches):
+        rows = torch.arange(x.shape[0], device=x.device)[:, None].expand_as(where)
+        return x.index_put((rows, where), patches.to(x.dtype))
+
+    if not L._is_dtensor(x):
+        return local(x, where, patches)
+    from torch.distributed.tensor import Replicate, Shard
+
+    batch = [Shard(0) if p.is_shard(0) else Replicate() for p in x.placements]
+    return _mesh.run(local, (x, where, patches), (batch,) * 3, batch, x.device_mesh)
+
+
 class Layer(nn.Module):
     """A pre-norm block: ``ln1``, attention (GQA, or MLA with ``mla``),
     ``ln2``, then the FFN: a SwiGLU ``mlp`` of width ``d_ff`` (the
@@ -341,9 +360,8 @@ class Model(nn.Module):
             return L.lsc(x, "batch", "seq", None)
         x = L.embed_lookup(self.embed, tokens)
         if cfg.family == "vlm" and "patch_embeds" in batch:
-            where = batch["patch_positions"]
-            rows = torch.arange(x.shape[0], device=x.device)[:, None].expand_as(where)
-            x[rows, where] = batch["patch_embeds"].to(x.dtype)
+            x = _scatter_patches(L.lsc(x, "batch", "seq", None), batch["patch_positions"],
+                                 batch["patch_embeds"])
         return L.lsc(x.to(cfg.dtype), "batch", "seq", None)
 
     def _rope(self, batch, S, device):

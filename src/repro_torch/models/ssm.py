@@ -23,7 +23,7 @@ from torch import nn
 from ..kernels.ssd.ops import ssd
 from ..kernels.ssd.ref import ssd_scan_torch
 from .common import make_param
-from .layers import RMSNorm, lsc, rms_norm
+from .layers import RMSNorm, einsum, lsc, rms_norm
 
 
 class Mamba2(nn.Module):
@@ -113,9 +113,9 @@ def mamba2_decode(p: Mamba2, x, state, conv_cache):
     dt, a = _dt_and_a(p, x[:, 0])                                       # [B,H]
     H = a.shape[0]
     xh = xb.reshape(xb.shape[0], H, -1).float()
-    state = torch.exp(dt * a)[:, :, None, None] * state.to(f32) + torch.einsum(
-        "bh,bn,bhp->bhnp", dt, B_, xh)
-    y = torch.einsum("bn,bhnp->bhp", C_, state)
+    state = torch.exp(dt * a)[:, :, None, None] * state.to(f32) + einsum(
+        "bn,bhp->bhnp", B_, dt[:, :, None] * xh)
+    y = einsum("bn,bhnp->bhp", C_, state)
     y = y + xh * p.d_skip.float()[None, :, None]
     y = y.reshape(xb.shape).to(dtype)
     y = rms_norm(y, p.out_norm.w) * F.silu(z)

@@ -25,15 +25,28 @@ The sLSTM keeps the paper's per-head block-diagonal recurrent gate mixing
 and runs as a time scan, one step per token; its state is (h, c, n).  No
 TPU kernel sits behind either block: both are plain torch on every device.
 Every weight is cast to the activation dtype where it is used.
+
+On a mesh (DTensor activations) the projections go through the mesh-aware
+``layers.einsum``/``matmul``, and each cell runs per rank on its local
+shards in one region (``kernels._mesh.run``), as K2 and K3 do: the mLSTM's
+gates and chunked form (or its step) with the batch and, where they divide,
+the heads split; the sLSTM's scan with the batch split and its gates whole
+(its regrouping interleaves the four gates of each head-dim, which a split
+of 4·d cannot keep), its recurrent weights' gradient partial over the
+batch split.  DTensor has no sharding strategy for ``log_sigmoid`` and
+would dispatch the sLSTM's scan op by op.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import _mesh
 from .common import make_param
-from .layers import RMSNorm, lsc, rms_norm
+from .layers import RMSNorm, _is_dtensor, einsum, lsc, matmul, rms_norm
 
 
 # ---------------------------------------------------------------- mLSTM ----
@@ -133,28 +146,61 @@ def mlstm_cell_step(q, k, v, log_f, i_gate, C, n):
 
 
 def _mlstm_qkvg(p: MLSTM, xm, n_heads: int):
+    """xm [B,S,di] → q, k, v [B,S,H,Dh] and the gates' pre-activations
+    f_pre, i_pre [B,S,H] (``_mlstm_cell`` applies them)."""
     di = xm.shape[-1]
     D = di // n_heads
     dtype = xm.dtype
     xh = xm.reshape(*xm.shape[:-1], n_heads, D)
-    q = torch.einsum("...hd,hde->...he", xh, p.wq.to(dtype))
-    k = torch.einsum("...hd,hde->...he", xh, p.wk.to(dtype))
-    v = torch.einsum("...hd,hde->...he", xh, p.wv.to(dtype))
-    log_f = F.logsigmoid((xm @ p.wf.to(dtype)).float() + p.f_bias.float())
-    i_gate = torch.sigmoid((xm @ p.wi.to(dtype)).float())
-    return q, k, v, log_f, i_gate
+    q = einsum("bshd,hde->bshe", xh, p.wq.to(dtype))
+    k = einsum("bshd,hde->bshe", xh, p.wk.to(dtype))
+    v = einsum("bshd,hde->bshe", xh, p.wv.to(dtype))
+    return q, k, v, matmul(xm, p.wf.to(dtype)), matmul(xm, p.wi.to(dtype))
+
+
+def _mlstm_cell(q, k, v, f_pre, i_pre, f_bias, chunk: int, state=None):
+    """The gates (log f = log σ(f_pre + f_bias), i = σ(i_pre), fp32), then
+    the chunked form over [B,S,H,·] (``state`` None) or one step from
+    ``state`` (C, n) (S = 1) → (y [B,S,H,Dh] fp32, (C, n)).  On DTensors,
+    per rank on the local shards: the resolver's batch and heads split of
+    q (``_mesh.base_placements``), f_bias and the states following the
+    heads, f_bias's gradient partial over the batch split."""
+    def local(q, k, v, f_pre, i_pre, f_bias, *st):
+        log_f = F.logsigmoid(f_pre.float() + f_bias.float())
+        i_gate = torch.sigmoid(i_pre.float())
+        if not st:
+            y, (C, n) = _mlstm_chunked(q, k, v, log_f, i_gate, chunk)
+            return y, C, n
+        y, C, n = mlstm_cell_step(q[:, 0], k[:, 0], v[:, 0], log_f[:, 0], i_gate[:, 0], *st)
+        return y[:, None], C, n
+
+    st = () if state is None else tuple(state)
+    if not _is_dtensor(q):
+        y, C, n = local(q, k, v, f_pre, i_pre, f_bias, *st)
+        return y, (C, n)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    base = _mesh.base_placements(q, "mlstm")
+    heads = [Shard(0) if p.is_shard(2) else Replicate() for p in base]
+    heads_grad = [Partial() if p.is_shard(0) else h for p, h in zip(base, heads)]
+    states = [Shard(1) if p.is_shard(2) else p for p in base]
+    ins = (base,) * 5 + (heads,) + (states,) * len(st)
+    y, C, n = _mesh.run(local, (q, k, v, f_pre, i_pre, f_bias, *st), ins,
+                        (list(base), states, states), q.device_mesh,
+                        (base,) * 5 + (heads_grad,) + (states,) * len(st))
+    return y, (C, n)
 
 
 def mlstm_forward(p: MLSTM, x, n_heads: int, chunk: int = 128, return_state: bool = False):
     """x [B,S,D] → [B,S,D]; with ``return_state`` also (C_T, n_T) fp32."""
     dtype = x.dtype
-    up = lsc(torch.einsum("bsd,df->bsf", x, p.w_up.to(dtype)), "batch", "seq", "ffn")
+    up = lsc(einsum("bsd,df->bsf", x, p.w_up.to(dtype)), "batch", "seq", "ffn")
     xm, z = up.chunk(2, dim=-1)
-    q, k, v, log_f, i_gate = _mlstm_qkvg(p, xm, n_heads)
-    y, state = _mlstm_chunked(q, k, v, log_f, i_gate, chunk)
+    q, k, v, f_pre, i_pre = _mlstm_qkvg(p, xm, n_heads)
+    y, state = _mlstm_cell(q, k, v, f_pre, i_pre, p.f_bias, chunk)
     y = y.reshape(xm.shape).to(dtype)
     y = rms_norm(y, p.out_norm.w) * F.silu(z)
-    out = torch.einsum("bsf,fd->bsd", y, p.w_down.to(dtype))
+    out = einsum("bsf,fd->bsd", y, p.w_down.to(dtype))
     if return_state:
         return out, state
     return out
@@ -163,15 +209,14 @@ def mlstm_forward(p: MLSTM, x, n_heads: int, chunk: int = 128, return_state: boo
 def mlstm_decode(p: MLSTM, x, state, n_heads: int):
     """x [B,1,D], state (C, n) → (out [B,1,D], (C, n)); the inputs are left
     as they were."""
-    C, n = state
     dtype = x.dtype
-    up = torch.einsum("bsd,df->bsf", x, p.w_up.to(dtype))
+    up = einsum("bsd,df->bsf", x, p.w_up.to(dtype))
     xm, z = up.chunk(2, dim=-1)
-    q, k, v, log_f, i_gate = _mlstm_qkvg(p, xm[:, 0], n_heads)
-    y, C, n = mlstm_cell_step(q, k, v, log_f, i_gate, C, n)
-    y = y.reshape(xm[:, 0].shape).to(dtype)
-    y = rms_norm(y, p.out_norm.w) * F.silu(z[:, 0])
-    out = torch.einsum("bf,fd->bd", y, p.w_down.to(dtype))[:, None, :]
+    q, k, v, f_pre, i_pre = _mlstm_qkvg(p, xm, n_heads)
+    y, (C, n) = _mlstm_cell(q, k, v, f_pre, i_pre, p.f_bias, 1, state)
+    y = y.reshape(xm.shape).to(dtype)
+    y = rms_norm(y, p.out_norm.w) * F.silu(z)
+    out = einsum("bsf,fd->bsd", y, p.w_down.to(dtype))
     return out, (C, n)
 
 
@@ -208,41 +253,77 @@ def slstm_cell_step(gx, r, h, c, n, n_heads: int):
     return h, c, n
 
 
-def _slstm_gates(p: SLSTM, x, n_heads: int):
-    """x [..., d] → the input-projected gates, regrouped so that they
-    interleave per head-dim: [..., H, dh, 4] flattened to [..., 4d]."""
-    d = x.shape[-1]
-    gx = x @ p.wx.to(x.dtype) + p.bias.to(x.dtype)
-    lead = gx.shape[:-1]
-    gx = gx.reshape(*lead, 4, n_heads, d // n_heads)
-    return gx.movedim(-3, -1).reshape(*lead, 4 * d)
+# The dry-run's knob (``launch.dryrun``): a trace unrolls the sLSTM's time
+# scan, one cell step a token (4096 steps a block at train_4k), so the
+# dry-run traces its first n steps only and extrapolates the cost to all
+# of them; the steps it does not take repeat the last h.  None: every step.
+_scan_steps = None
+
+
+@contextlib.contextmanager
+def scan_steps(n):
+    """Within this block, ``_slstm_scan`` takes only its first ``n`` steps
+    (None: all), for the dry-run's trace."""
+    global _scan_steps
+    before, _scan_steps = _scan_steps, n
+    try:
+        yield
+    finally:
+        _scan_steps = before
+
+
+def _slstm_scan(gx, r, n_heads: int, state=None):
+    """gx [B,S,4d] (input-projected gates, bias added), regrouped so that
+    they interleave per head-dim ([B,S,H,dh,4] flattened), then one cell
+    step per token from ``state`` (h, c, n) [B,H,dh] fp32 (zeros if None)
+    → (hs [B,S,d] fp32, (h, c, n)).  On DTensors, per rank with the batch
+    split and the gates whole; r's gradient partial over the batch split."""
+    def local(gx, r, *st):
+        B, S, d4 = gx.shape
+        d = d4 // 4
+        g = gx.reshape(B, S, 4, n_heads, d // n_heads).movedim(2, -1).reshape(B, S, d4)
+        r = r.float()          # cast once, not once a step
+        if st:
+            h, c, n = st
+        else:
+            h = torch.zeros(B, n_heads, d // n_heads, dtype=torch.float32, device=gx.device)
+            c, n = h, h
+        hs = []
+        for t in range(S if _scan_steps is None else min(S, _scan_steps)):
+            h, c, n = slstm_cell_step(g[:, t], r, h, c, n, n_heads)
+            hs.append(h)
+        hs += [h] * (S - len(hs))
+        return torch.stack(hs, dim=1).reshape(B, S, d), h, c, n
+
+    st = () if state is None else tuple(state)
+    if not _is_dtensor(gx):
+        hs, h, c, n = local(gx, r, *st)
+        return hs, (h, c, n)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    batch = [Shard(0) if p.is_shard(0) else Replicate() for p in gx.placements]
+    whole = [Replicate()] * len(batch)
+    r_grad = [Partial() if p.is_shard() else p for p in batch]
+    hs, h, c, n = _mesh.run(local, (gx, r, *st), (batch, whole) + (batch,) * len(st),
+                            (batch,) * 4, gx.device_mesh, (batch, r_grad) + (batch,) * len(st))
+    return hs, (h, c, n)
 
 
 def slstm_forward(p: SLSTM, x, n_heads: int, return_state: bool = False):
     """x [B,S,d] → [B,S,d], one cell step per token; with ``return_state``
     also the final (h, c, n)."""
-    B, S, d = x.shape
-    dh = d // n_heads
-    gx = _slstm_gates(p, x, n_heads)
-    r = p.r.float()            # cast once, not once a step
-    h = torch.zeros(B, n_heads, dh, dtype=torch.float32, device=x.device)
-    c, n = h, h
-    hs = []
-    for t in range(S):
-        h, c, n = slstm_cell_step(gx[:, t], r, h, c, n, n_heads)
-        hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    y = rms_norm(y, p.out_norm.w)
-    out = torch.einsum("bsd,de->bse", y, p.wo.to(x.dtype))
+    gx = matmul(x, p.wx.to(x.dtype)) + p.bias.to(x.dtype)
+    hs, state = _slstm_scan(gx, p.r, n_heads)
+    y = rms_norm(hs.to(x.dtype), p.out_norm.w)
+    out = einsum("bsd,de->bse", y, p.wo.to(x.dtype))
     if return_state:
-        return out, (h, c, n)
+        return out, state
     return out
 
 
 def slstm_decode(p: SLSTM, x, state, n_heads: int):
     """x [B,1,d], state (h, c, n) → (out [B,1,d], (h, c, n))."""
-    B, _, d = x.shape
-    h, c, n = slstm_cell_step(_slstm_gates(p, x[:, 0], n_heads), p.r, *state, n_heads)
-    y = h.reshape(B, d).to(x.dtype)
-    y = rms_norm(y, p.out_norm.w)
-    return (y @ p.wo.to(x.dtype))[:, None, :], (h, c, n)
+    gx = matmul(x, p.wx.to(x.dtype)) + p.bias.to(x.dtype)
+    hs, state = _slstm_scan(gx, p.r, n_heads, state)
+    y = rms_norm(hs.to(x.dtype), p.out_norm.w)
+    return einsum("bsd,de->bse", y, p.wo.to(x.dtype)), state

@@ -10,7 +10,15 @@ processes on a TCP store at ``--port``, a mesh of ``--shape`` over
   gradients of every parameter and of the input, whole;
 - ``decode``: the same model served: a prefill of 8 tokens into a cache of
   16 split on its sequence ("seq_kv" → "model"), then one decode step: both
-  logits, whole.
+  logits, whole;
+- ``moe``, ``mla_moe``, ``vlm``, ``xlstm``: smoke phi3.5-moe, deepseek-v2
+  (both at capacity factor 1.0, so that slots are dropped), qwen2-vl-72b
+  (with patch embeddings and M-RoPE positions) and xlstm-1.3b in fp32, one
+  ``Model.loss`` forward and backward (remat on, as the
+  trainer runs it): the loss, every parameter's gradient, whole, each
+  MoE layer's ``Routing`` (every call of ``moe.route``, the recompute's
+  too), whole, and the ``Routing`` of the last MoE layer's router for 64
+  seeded tokens split on the batch, whole.
 
     python tests/_mesh_worker.py --rank R --world 4 --port P --shape 2,2 \\
         --what train --out out.pt
@@ -115,13 +123,79 @@ def decode(resolver=None):
     return whole(logits), whole(out)
 
 
+FAMILIES = {"moe": "phi3.5-moe-42b-a6.6b", "mla_moe": "deepseek-v2-236b",
+            "vlm": "qwen2-vl-72b", "xlstm": "xlstm-1.3b"}
+
+
+def family_batch(cfg, B=4, S=16):
+    b = batch(cfg, B, S)
+    if cfg.family == "vlm":
+        g = torch.Generator().manual_seed(8)
+        P = cfg.n_patches
+        b["patch_embeds"] = torch.randn(B, P, cfg.d_model, generator=g)
+        b["patch_positions"] = torch.stack([torch.randperm(S, generator=g)[:P]
+                                            for _ in range(B)])
+        t = torch.arange(S)
+        b["positions3"] = torch.stack([t, t // 4, t % 4], -1)[None].expand(B, S, 3).contiguous()
+    return b
+
+
+def family(what, resolver=None):
+    """One loss forward and backward → (loss, {name: gradient}, [routing])."""
+    from repro_torch.models import moe
+
+    cfg = config(FAMILIES[what])
+    cfg.capacity_factor = 1.0       # capacity T·k/E: some slots are dropped
+    model = Model(cfg, device="cpu", seed=0).float().requires_grad_(True)
+    b = family_batch(cfg)
+    routes, route = [], moe.route
+
+    def spy(*args, **kw):
+        r = route(*args, **kw)
+        routes.append({"cap": r.cap, **{k: whole(getattr(r, k)).detach() for k in
+                                        ("top_e", "kept", "where", "token_idx", "gate",
+                                         "aux_loss")}})
+        return r
+
+    moe.route = spy
+    direct = None
+    if cfg.n_experts:
+        # the routing alone, on the same tokens [B·S, D] split on the batch
+        xf = torch.randn(64, cfg.d_model, generator=torch.Generator().manual_seed(9))
+        layer = model.layers[-1].moe
+        if resolver is not None:
+            xf = distribute_tensor(xf, resolver.mesh, resolver(("batch", None), xf.shape))
+            with activate(resolver):
+                r = route(layer.router, xf, cfg.top_k, cfg.capacity_factor)
+        else:
+            r = route(layer.router, xf, cfg.top_k, cfg.capacity_factor)
+        direct = {"cap": r.cap, **{k: whole(getattr(r, k)).detach() for k in
+                                   ("top_e", "kept", "where", "token_idx", "gate", "aux_loss")}}
+    try:
+        if resolver is None:
+            loss, _ = model.loss(b)
+            loss.backward()
+        else:
+            distribute_model(model, resolver)
+            b = {k: distribute_tensor(v, resolver.mesh,
+                                      resolver(("batch",) + (None,) * (v.dim() - 1), v.shape))
+                 for k, v in b.items()}
+            with activate(resolver):
+                loss, _ = model.loss(b)
+                loss.backward()
+    finally:
+        moe.route = route
+    return (whole(loss).detach(), {k: whole(p.grad) for k, p in model.named_parameters()},
+            routes, direct)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
     ap.add_argument("--port", type=int, required=True)
     ap.add_argument("--shape", required=True)
-    ap.add_argument("--what", choices=("train", "mamba", "decode"), required=True)
+    ap.add_argument("--what", choices=("train", "mamba", "decode", *FAMILIES), required=True)
     ap.add_argument("--out", required=True)
     args = ap.parse_args()
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{args.port}",
@@ -134,6 +208,8 @@ def main():
             out = train(Resolver(config(), mesh))
         elif args.what == "mamba":
             out = mamba(Resolver(config("zamba2-1.2b"), mesh))
+        elif args.what in FAMILIES:
+            out = family(args.what, Resolver(config(FAMILIES[args.what]), mesh))
         else:
             resolver = Resolver(config(), mesh, overrides={"seq_kv": ("model",)})
             out = decode(resolver)

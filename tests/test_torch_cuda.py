@@ -302,9 +302,9 @@ def test_ssd_kernel_rejects_what_it_does_not_cover(cuda):
         ssd_ops.ssd(x, dt, Bm, Bm, a, chunk=128)
     with pytest.raises(ValueError, match="chunk"):
         ssd_ops.ssd(x[..., :64], dt, Bm[..., :64], Bm[..., :64], a, chunk=256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="decay_dtype"):
         ssd_ops.ssd(x[..., :64], dt, Bm[..., :64], Bm[..., :64], a, chunk=128,
-                    decay_dtype=torch.bfloat16)
+                    decay_dtype=torch.float16)
 
 
 @pytest.mark.parametrize("B,S,H,chunk,a_fixed", [
@@ -343,9 +343,47 @@ def test_ssd_sm90_refuses_what_it_does_not_take(cuda):
         ssd_ops.ssd(x, dt, wide, Cm, a)
     with pytest.raises(ValueError, match="chunk"):
         ssd_ops.ssd(x, dt, Bm, Cm, a, chunk=256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssd_ops.ssd(x, dt, Bm, Cm, a, decay_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="decay_dtype"):
+        ssd_ops.ssd(x, dt, Bm, Cm, a, decay_dtype=torch.float16)
     assert ssd_ops.launches == before
+
+
+def _bf16_decay_tol(x, dt, Bm, Cm, a, chunk):
+    """The bf16-decay forms' tolerance beyond ``_assert_ssd_close``'s: the
+    kernel and its plain version round G = C·Bᵀ to bf16 after sums of
+    another order, so a term may differ by one bf16 ulp, 2**-7 of itself;
+    summed, 2**-7 of y_abs (the scan on |x|, |B| and |C|)."""
+    y_abs, _ = ssd_scan_torch(x.float().abs(), dt, Bm.float().abs(), Cm.float().abs(), a,
+                              chunk)
+    return 2.0 ** -7 * y_abs
+
+
+@pytest.mark.parametrize("route", ["sm90", "scalar"])
+@pytest.mark.parametrize("B,S,H,chunk,a_fixed", [
+    (2, 300, 4, 64, None),      # ragged at 64
+    (2, 1000, 8, 128, None),    # ragged at 128
+    (2, 100, 5, 30, None),      # a chunk that is not a multiple of 16
+    (2, 256, 4, 128, -1.0),     # where exp(L_i - L_j) overflows above the diagonal
+    (4, 1024, 64, 128, None),   # zamba2-1.2b's prefill
+])
+def test_ssd_bf16_decay_matches_plain(cuda, route, B, S, H, chunk, a_fixed):
+    """Both kernels' bf16-decay forms against their plain versions (bf16 x,
+    B and C at N = P = 64)."""
+    x, dt, Bm, Cm, a = _ssd_inputs(cuda, B, S, H, 64, 64, torch.bfloat16, a_fixed, S + H + 2)
+    bf = torch.bfloat16
+    if route == "sm90":
+        y, state = ssd_ops.ssd(x, dt, Bm, Cm, a, chunk=chunk, decay_dtype=bf)
+        want_y, want_state = ssd_ops.ssd_plain(x, dt, Bm, Cm, a, chunk=chunk, decay_dtype=bf)
+    else:
+        y, state = ssd_ops.ssd_scalar(x, dt, Bm, Cm, a, chunk=chunk, decay_dtype=bf)
+        want_y, want_state = ssd_scan_torch(x, dt, Bm, Cm, a, chunk=chunk, decay_dtype=bf)
+    extra = _bf16_decay_tol(x, dt, Bm, Cm, a, chunk)
+    floor = 1e-4 * (1 + want_y.float().abs().max().item())
+    tol = floor + 2.0 ** -7 * want_y.float().abs() + extra
+    assert torch.isfinite(y).all() and ((y.float() - want_y.float()).abs() <= tol).all()
+    assert (state - want_state).abs().max().item() <= 1e-4 * (1 + want_state.abs().max().item())
+    # the fp32 decay differs: the bf16 form is a form of its own
+    assert not torch.equal(y, ssd_ops.ssd(x, dt, Bm, Cm, a, chunk=chunk)[0])
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-72b", "musicgen-large", "phi3.5-moe-42b-a6.6b",
@@ -597,3 +635,47 @@ def test_kernels_through_local_map_on_the_card_mesh(card_mesh):
     assert (fa_ops.launches_sm90 - fa0, ssd_ops.launches_sm90 - ssd0) == (1, 1)
     assert torch.equal(o.full_tensor(), want_o)
     assert torch.equal(y.full_tensor(), want_y) and torch.equal(s.full_tensor(), want_s)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b", "qwen2-vl-72b",
+                                  "xlstm-1.3b"])
+def test_family_loss_on_the_card_mesh(card_mesh, arch):
+    """The family's smoke model at 2 layers in fp32 on the card: one loss
+    forward and backward on the (1,) mesh against the same without it,
+    the loss and every gradient within 1e-5 relative; K2 launches in each
+    attention layer (the forward and remat's recompute) both ways."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Resolver, activate, distribute_model
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32, n_layers=2)
+    model = Model(cfg, device="cuda", seed=0).float().requires_grad_(True)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    B, S = 4, 32
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=g, device="cuda")
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(B, cfg.n_patches, cfg.d_model, generator=g,
+                                            device="cuda")
+        batch["patch_positions"] = torch.arange(3, 3 + cfg.n_patches, device="cuda").repeat(B, 1)
+    attn = 0 if cfg.family == "xlstm" else 2 * cfg.n_layers
+    n = fa_ops.launches
+    loss = model.loss(batch)[0]
+    loss.backward()
+    assert fa_ops.launches - n == attn
+    want = {k: p.grad.clone() for k, p in model.named_parameters()}
+    r = Resolver(cfg, card_mesh)
+    distribute_model(model, r)
+    mbatch = {k: distribute_tensor(v, card_mesh, r(("batch",) + (None,) * (v.dim() - 1), v.shape))
+              for k, v in batch.items()}
+    n = fa_ops.launches
+    with activate(r):
+        got = model.loss(mbatch)[0]
+        got.backward()
+    assert fa_ops.launches - n == attn
+    assert abs(got.full_tensor().item() - loss.item()) <= 1e-5 * abs(loss.item())
+    for k, p in model.named_parameters():
+        w = want[k]
+        assert (p.grad.full_tensor() - w).norm() <= 1e-5 * w.norm(), k

@@ -231,29 +231,37 @@ def host_mesh(tmp_path):
         dist.destroy_process_group()
 
 
-def test_host_mesh_loss_matches_reference(host_mesh):
+@pytest.mark.parametrize("arch", ["yi-9b", "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b",
+                                  "qwen2-vl-72b", "xlstm-1.3b"])
+def test_host_mesh_loss_matches_reference(host_mesh, arch):
     """The counterpart of the reference's host-mesh lowering: the
     resolver-constrained loss on the mesh, against the reference's jitted
-    loss on the same weights."""
+    loss on the same weights (the MoE families' reference with
+    ``scan_layers=False, remat=False``, so that its MoE runs eagerly, as
+    tests/test_torch_models.py runs it; vlm with patch embeddings and
+    positions3)."""
     import dataclasses
 
     import jax.numpy as jnp
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.distributed.sharding import activate, distribute_model
+    from test_torch_models import _batch, _to
 
-    jcfg = dataclasses.replace(jax_get_config("yi-9b", smoke=True), dtype=jnp.float32)
-    cfg = dataclasses.replace(get_config("yi-9b", smoke=True), dtype=torch.float32)
+    eager = {"scan_layers": False, "remat": False} if "moe" in get_config(arch).family else {}
+    jcfg = dataclasses.replace(jax_get_config(arch, smoke=True), dtype=jnp.float32, **eager)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
     jmodel = JaxModel(jcfg)
     params = unbox(jmodel.init(jax.random.PRNGKey(0)))
     model = Model(cfg, device="cpu")
     model.load_state_dict(params_from_jax(jax.device_get(params)), strict=True)
-    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16)).astype(np.int32)
-    want = float(jax.jit(jmodel.loss)(params, {"tokens": toks, "targets": toks})[0])
+    batch = _batch(cfg, 2, 16)
+    batch["targets"] = batch["tokens"]
+    want = float(jax.jit(jmodel.loss)(params, _to(batch, "jax"))[0])
     r = Resolver(cfg, host_mesh)
     distribute_model(model, r)
-    batch = {k: distribute_tensor(torch.from_numpy(toks).long(), host_mesh,
-                                  r(("batch", None), toks.shape)) for k in ("tokens", "targets")}
+    batch = {k: distribute_tensor(v, host_mesh, r(("batch",) + (None,) * (v.dim() - 1), v.shape))
+             for k, v in _to(batch, "torch").items()}
     with activate(r):
         loss, _ = model.loss(batch)
     assert type(loss).__name__ == "DTensor"
@@ -330,6 +338,38 @@ def test_2x2_mesh_decode_with_the_cache_split_on_its_sequence(tmp_path):
     got = _run_mesh(tmp_path, "decode")
     for g, w in zip(got, _mesh_worker.decode()):
         assert (g - w).abs().max() <= 1e-5 * (1 + w.abs().max())
+
+
+@pytest.mark.parametrize("what", sorted(_mesh_worker.FAMILIES))
+def test_2x2_mesh_family_matches_one_process(tmp_path, what):
+    """One loss forward and backward of the family's smoke model on the
+    (2, 2) mesh against one process: the loss and every parameter's
+    gradient within 1e-5 relative; each MoE layer's routing decisions
+    (top-k experts, kept slots, rows, the tokens each expert row reads, the
+    capacity) exactly, their fp32 gates and aux loss within 1e-5 (the
+    activations before the router differ in the order of the mesh's sums);
+    the routing alone, on the same tokens split on the batch, exactly, the
+    gates too."""
+    loss, grads, routes, direct = _run_mesh(tmp_path, what)
+    want_loss, want, want_routes, want_direct = _mesh_worker.family(what)
+    assert abs(loss.item() - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+    assert set(grads) == set(want)
+    for k, g in want.items():
+        assert (grads[k] - g).norm() <= 1e-5 * g.norm(), k
+    assert len(routes) == len(want_routes) == (0 if what in ("vlm", "xlstm") else 4)
+    exact = ("top_e", "kept", "where", "token_idx")
+    for got, w in zip(routes, want_routes):
+        assert got["cap"] == w["cap"] and all(torch.equal(got[k], w[k]) for k in exact)
+        for k in ("gate", "aux_loss"):
+            assert (got[k] - w[k]).norm() <= 1e-5 * w[k].norm()
+    if want_direct is not None:
+        assert (~want_direct["kept"]).sum() > 0            # slots were dropped
+        assert direct["cap"] == want_direct["cap"]
+        assert all(torch.equal(direct[k], want_direct[k]) for k in exact + ("gate", "aux_loss"))
+        assert torch.equal(torch.bincount(direct["top_e"].reshape(-1)),
+                           torch.bincount(want_direct["top_e"].reshape(-1)))
+    else:
+        assert direct is None
 
 
 def test_1x2_mesh_mamba2_block_matches_one_process(tmp_path):

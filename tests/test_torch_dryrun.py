@@ -17,9 +17,14 @@
   head), so the ratio stays under 1.
 - ``analyze_cell``'s extrapolation is exact on probe results linear in the
   depth.
-- The cells the port cannot shard yet end ``status: "failed"`` with the op
-  that lacks a DTensor sharding strategy in ``error`` (ROADMAP.md §3), at 2
-  layers, in a process of their own; none runs unsharded.
+- The cells of the xlstm, vlm, moe and mla_moe families that the dry-run
+  once could not shard (ROADMAP.md §3) end ``status: "ok"`` at 2 layers,
+  in a process of their own, with the FSDP all-gathers in their graphs;
+  on the 2 × 16 × 16 mesh, zamba2 × long_500k and deepseek-v2 × train_4k
+  (its dense layer 0) end ``status: "ok"`` too.
+- ``slstm_steps`` and the sLSTM scan's step extrapolation: exact on a
+  2-layer xlstm train step at a sequence of 64, against the trace that
+  takes every step.
 """
 import json
 import os
@@ -161,27 +166,106 @@ def test_analyze_cell_extrapolates_linear_probes_exactly(monkeypatch):
     assert dryrun.analyze_cell("zamba2-1.2b", "train_4k")["probe_L"] == 14
 
 
-# (arch, shape) → the op that has no sharding strategy there (ROADMAP.md §3)
-UNSHARDABLE = {("xlstm-1.3b", "train_4k"): "log_sigmoid_forward",
-               ("qwen2-vl-72b", "train_4k"): "index_put_",
-               ("phi3.5-moe-42b-a6.6b", "decode_32k"): "bincount",
-               ("deepseek-v2-236b", "train_4k"): "bincount"}
+# the four families the dry-run once could not shard (ROADMAP.md §3, closed)
+FAMILY_CELLS = [("xlstm-1.3b", "train_4k"), ("xlstm-1.3b", "decode_32k"),
+                ("qwen2-vl-72b", "train_4k"),
+                ("phi3.5-moe-42b-a6.6b", "train_4k"), ("phi3.5-moe-42b-a6.6b", "decode_32k"),
+                ("deepseek-v2-236b", "train_4k"), ("deepseek-v2-236b", "decode_32k")]
+# and, on the multi-pod mesh, the cells whose products DTensor could not
+# propagate there: a Mamba2 decode (its state einsums; batch 1, which
+# nothing splits) and MLA's projections (the backward of x @ wdkv), at
+# (arch, shape, layers): deepseek-v2's layer 0, dense, holds its MLA
+MULTI_POD_CELLS = [("zamba2-1.2b", "long_500k", 2), ("deepseek-v2-236b", "train_4k", 1)]
 
-_FAILING = r"""
+_CELLS = r"""
 import json, sys
 from repro_torch.launch import dryrun
-cells = json.loads(sys.argv[1])
-print(json.dumps([dryrun.dryrun_cell(a, s, config_patch={"n_layers": 2}) for a, s in cells]))
+cells, multi = json.loads(sys.argv[1]), sys.argv[2] == "multi"
+print(json.dumps([dryrun.dryrun_cell(a, s, multi_pod=multi, config_patch={"n_layers": n})
+                  for a, s, n in cells]))
 """
 
 
-def test_unshardable_cells_fail_with_the_op():
-    cells = list(UNSHARDABLE)
-    out = subprocess.run([sys.executable, "-c", _FAILING, json.dumps(cells)],
-                         capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=SRC),
-                         timeout=300)
+@pytest.fixture(scope="module")
+def family_cells():
+    """Every cell of ``FAMILY_CELLS`` at 2 layers, in one process of their
+    own, and of ``MULTI_POD_CELLS`` in another → {(arch, shape): result},
+    the multi-pod ones under (arch, shape, "multi")."""
+    runs = [(cells, mesh, subprocess.Popen(
+        [sys.executable, "-c", _CELLS, json.dumps(cells), mesh], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=dict(os.environ, PYTHONPATH=SRC)))
+        for cells, mesh in (([(a, s, 2) for a, s in FAMILY_CELLS], "single"),
+                            (MULTI_POD_CELLS, "multi"))]      # the two in parallel
+    results = {}
+    for cells, mesh, proc in runs:
+        out, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-3000:]
+        for (a, s, _), res in zip(cells, json.loads(out.strip().splitlines()[-1])):
+            results[(a, s) if mesh == "single" else (a, s, mesh)] = res
+    return results
+
+
+@pytest.mark.parametrize("arch,shape", FAMILY_CELLS)
+def test_family_cell_traces_sharded(family_cells, arch, shape):
+    """The cells whose ops once had no DTensor strategy (xlstm's
+    log_sigmoid, vlm's patch scatter, the MoE's bincount) trace sharded on
+    256 ranks at 2 layers, with the FSDP all-gathers in the graph; xlstm's
+    train cell costs its sLSTM scan at all 4096 steps from traces of 1 and
+    2 (``slstm_steps_extrapolated``), its decode cell takes one step."""
+    res = family_cells[arch, shape]
+    assert res["status"] == "ok", res
+    assert res["n_devices"] == 256 and res["n_layers"] == 2
+    assert res["kind"] == SHAPES[shape]["kind"]
+    assert res["collectives"]["count_all-gather"] > 0
+    assert res["collectives"]["bytes_total"] > 0
+    mem = res["memory"]
+    assert mem["peak_est_bytes"] == (mem["argument_bytes"] + mem["output_bytes"]
+                                     + mem["temp_bytes"])
+    assert 0 < res["useful_flops_ratio"] < 1.0, res["useful_flops_ratio"]
+    steps = SHAPES[shape]["seq"] if (arch, shape) == ("xlstm-1.3b", "train_4k") else None
+    assert res.get("slstm_steps_extrapolated") == steps
+
+
+@pytest.mark.parametrize("arch,shape,layers", MULTI_POD_CELLS)
+def test_multi_pod_cell_traces(family_cells, arch, shape, layers):
+    """zamba2's long-context decode (batch 1) and deepseek-v2's MLA train
+    step trace on the 2 × 16 × 16 mesh: the Mamba2 decode's state products
+    and MLA's projections go through the mesh-aware einsum."""
+    res = family_cells[arch, shape, "multi"]
+    assert res["status"] == "ok", res
+    assert res["n_devices"] == 512 and res["multi_pod"] and res["n_layers"] == layers
+    assert res["kind"] == SHAPES[shape]["kind"]
+    assert res["collectives"]["bytes_total"] > 0
+
+
+_STEPS = r"""
+import json
+from repro_torch.configs import SHAPES
+from repro_torch.launch import dryrun
+SHAPES["train_4k"] = dict(SHAPES["train_4k"], seq=64)
+patch = {"n_layers": 2}
+got = dryrun.dryrun_cell("xlstm-1.3b", "train_4k", config_patch=patch)
+dryrun.slstm_steps = lambda cfg, shape: 0
+full = dryrun.dryrun_cell("xlstm-1.3b", "train_4k", config_patch=patch)
+print(json.dumps([got, full]))
+"""
+
+
+def test_slstm_steps_extrapolate_exactly():
+    """The sLSTM scan traced at 1 and 2 steps, extrapolated to a sequence
+    of 64, against the trace that takes all 64: the same FLOPs, bytes,
+    collectives and memory (each step adds the same ops)."""
+    cfg = get_config("xlstm-1.3b")
+    assert dryrun.slstm_steps(cfg, "train_4k") == 4096
+    assert dryrun.slstm_steps(cfg, "prefill_32k") == 32768
+    assert dryrun.slstm_steps(cfg, "decode_32k") == 0
+    assert dryrun.slstm_steps(get_config("zamba2-1.2b"), "train_4k") == 0
+    out = subprocess.run([sys.executable, "-c", _STEPS], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=SRC), timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    results = json.loads(out.stdout.strip().splitlines()[-1])
-    for (arch, shape), res in zip(cells, results):
-        assert res["status"] == "failed", (arch, shape, res)
-        assert UNSHARDABLE[arch, shape] in res["error"], (arch, shape, res["error"][:500])
+    got, full = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["status"] == full["status"] == "ok"
+    assert got["slstm_steps_extrapolated"] == 64 and "slstm_steps_extrapolated" not in full
+    for key in ("flops_per_device", "bytes_per_device", "collective_bytes_per_device"):
+        assert got["roofline"][key] == pytest.approx(full["roofline"][key], rel=1e-9), key
+    assert got["memory"] == full["memory"]
