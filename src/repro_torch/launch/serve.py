@@ -4,6 +4,8 @@
     python -m repro_torch.launch.serve --arch llama3.2-3b --smoke --device cpu
     python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --smoke --device cpu
     python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu \
+        --metrics-dump serve-metrics --trace-dump serve-spans.jsonl
 
 Every family but ``audio`` (musicgen-large, whose prompts are [K, S]
 codebook grids: the engine refuses it) serves.
@@ -15,6 +17,7 @@ import time
 
 from ..configs import ARCHS, get_config
 from ..core import KedaAutoscaler, Triggerflow
+from ..obs.trace import SpanCollector, Tracer
 from ..serving.engine import ServingEngine
 
 
@@ -28,13 +31,23 @@ def main() -> None:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--metrics-dump", metavar="PREFIX", default=None,
                     help="on exit, write the aggregated metrics snapshot to "
-                         "PREFIX.prom (Prometheus text) and PREFIX.json")
+                         "PREFIX.prom (Prometheus text) and PREFIX.json, the "
+                         "engine's serving counters included")
+    ap.add_argument("--trace-dump", metavar="PATH", default=None,
+                    help="trace every request, batch, prefill and decode step and "
+                         "write the spans to PATH as JSON lines on exit")
     args = ap.parse_args()
 
     cfg = get_config(args.arch, smoke=args.smoke)
     tf = Triggerflow(inline_functions=True, device=args.device)
+    tracer = None
+    if args.trace_dump:
+        # room for every span: a request, and at most a batch a request
+        # with its prefill and decode steps
+        tracer = Tracer(sample=1.0, collector=SpanCollector(
+            capacity=args.requests * (3 + args.max_new_tokens)))
     eng = ServingEngine(cfg, tf, "serve", max_batch=args.max_batch,
-                        max_new_tokens=args.max_new_tokens, max_len=256)
+                        max_new_tokens=args.max_new_tokens, max_len=256, tracer=tracer)
     eng.deploy()
     scaler = KedaAutoscaler(tf, poll_interval=0.05, grace_period=0.5).start()
     t0 = time.time()
@@ -57,9 +70,13 @@ def main() -> None:
             from ..obs.metrics import dump_metrics, merge_snapshot
             snap = tf.metrics_snapshot()
             merge_snapshot(snap, scaler.metrics_snapshot())
+            merge_snapshot(snap, eng.metrics.snapshot())
             for path in dump_metrics(snap, args.metrics_dump):
                 print(f"metrics dumped to {path}")
         tf.shutdown()
+        if tracer is not None:
+            n = tracer.collector.export_jsonl(args.trace_dump)
+            print(f"{n} spans dumped to {args.trace_dump}")
 
 
 if __name__ == "__main__":
