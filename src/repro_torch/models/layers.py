@@ -219,13 +219,20 @@ def gather_last(x, idx):
                      (px, pi), pi, x.device_mesh)
 
 
-def write_slice(cache, start: int, value) -> None:
+def write_slice(cache, start, value) -> None:
     """``cache[:, start:start + n] = value`` in place (n = value.shape[1]),
-    cast to the cache's dtype.  On a DTensor cache each rank writes, into
-    its own shard, the part of ``value`` that falls there: a cache split on
-    dim 1 (the sequence, "seq_kv") takes a write at any position, which a
-    DTensor slice of a split dim would make into a copy."""
+    cast to the cache's dtype.  ``start`` is an int, or a 0-d int64 tensor
+    on the cache's device (a captured decode step's position), written at
+    by ``index_copy_`` along dim 1 with no read on the host.  On a DTensor
+    cache each rank writes, into its own shard, the part of ``value`` that
+    falls there: a cache split on dim 1 (the sequence, "seq_kv") takes a
+    write at any position, which a DTensor slice of a split dim would make
+    into a copy."""
     n = value.shape[1]
+    if isinstance(start, torch.Tensor):
+        rows = start.reshape(1) + torch.arange(n, device=cache.device)
+        cache.index_copy_(1, rows, value.to(cache.dtype))
+        return
     if not _is_dtensor(cache):
         cache[:, start:start + n] = value.to(cache.dtype)
         return
@@ -411,7 +418,8 @@ def attention(q, k, v, causal=True, q_chunk=2048, kv_chunk=2048, unroll=False):
 
 def attention_decode(q, k_cache, v_cache, pos):
     """Single-token decode vs a (padded) cache.  q [B,1,Hq,D],
-    caches [B,T,Hkv,D], ``pos`` = number of valid cache entries (int or [B])."""
+    caches [B,T,Hkv,D], ``pos`` = number of valid cache entries (int, [B]
+    or a 0-d tensor)."""
     B, _, Hq, D = q.shape
     T, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
@@ -465,11 +473,13 @@ def gqa_forward(p: GQA, x, cos, sin, causal=True, q_chunk=2048, kv_chunk=2048,
     return gqa_out(p, attn), (k, v)
 
 
-def gqa_decode(p: GQA, x, cache_k, cache_v, pos: int, cos, sin):
+def gqa_decode(p: GQA, x, cache_k, cache_v, pos, cos, sin):
     """x [B,1,D]; writes K/V at ``pos`` and attends over the valid prefix.
     The caches are updated in place (the JAX package returns new arrays);
-    they are returned too, as in the reference."""
-    if pos >= cache_k.shape[1]:
+    they are returned too, as in the reference.  ``pos`` is an int, or a
+    0-d int64 tensor on the device (a captured step), whose bound its
+    caller checks: here that would read it on the host."""
+    if isinstance(pos, int) and pos >= cache_k.shape[1]:
         raise ValueError(f"decode position {pos} is past the cache length "
                          f"{cache_k.shape[1]}")
     q, k, v = gqa_qkv(p, x)

@@ -33,7 +33,9 @@ run with it where the parameters require gradients, which the trainer
 turns on (``training.train_step``) and serving leaves off.  ``decode``
 writes the attention K/V into the cache's tensors in place and returns new
 SSM, conv and xLSTM states, so a prefill cache can be decoded from more
-than once.
+than once.  On a CUDA device the dense and hybrid families' ``decode``
+replays a CUDA graph of the step instead (``models.decode_graph``), which
+copies the cache it is given into its own and leaves that one as it was.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..kernels import _mesh
+from . import decode_graph as DG
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
@@ -342,6 +345,21 @@ class Model(nn.Module):
             self.shared_proj = nn.ParameterList(
                 make_param(gen, (2 * d, d), ("embed", "embed2"), (2 * d) ** -0.5, device=device)
                 for _ in cfg.shared_sites())
+        # decode's CUDA graphs by (B, max_len), made at their first step
+        # (``models.decode_graph``), and how many were captured and replayed
+        self._decode_graphs: Dict[Tuple[int, int], DG.DecodeGraph] = {}
+        self.decode_graph_captures = 0
+        self.decode_graph_replays = 0
+
+    def _apply(self, fn, *args, **kwargs):
+        # a graph reads the parameters at the addresses they had when it was
+        # captured: a move or a cast drops the graphs
+        self._decode_graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    def load_state_dict(self, *args, **kwargs):
+        self._decode_graphs.clear()     # ``assign=True`` puts new tensors in
+        return super().load_state_dict(*args, **kwargs)
 
     # ------------------------------------------------------------- helpers ----
     def _embed(self, batch):
@@ -608,8 +626,18 @@ class Model(nn.Module):
     def decode(self, cache: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         """One decode step: batch['tokens'] [B,1] (audio: [B,K,1]) →
         (logits [B,V] fp32 (audio: [B,K,V]), cache with ``pos`` advanced).
-        The cache's K/V (latent) tensors are updated in place; the hybrid's
-        SSM and conv states and xlstm's states come back as new tensors."""
+        Where ``DG.replays`` holds (the dense and hybrid families on a CUDA
+        device, off a mesh) the step replays a CUDA graph held for (B,
+        max_len) (``models.decode_graph``): the cache it returns holds the
+        graph's own tensors.  Else it runs eagerly (``_decode_eager``)."""
+        if DG.replays(self):
+            return DG.decode(self, cache, batch)
+        return self._decode_eager(cache, batch)
+
+    def _decode_eager(self, cache: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        """The step op by op, ``pos`` a Python int.  The cache's K/V
+        (latent) tensors are updated in place; the hybrid's SSM and conv
+        states and xlstm's states come back as new tensors."""
         cfg = self.cfg
         pos = cache["pos"]
         x = self._embed(batch)
@@ -638,8 +666,29 @@ class Model(nn.Module):
                                          cfg.rope_theta)
                 x, _ = self._ffn(lp, x + h)
             return self._unembed(x)[:, -1], {**cache, "pos": pos + 1}
+        logits, states = self._decode_layers(x, cache, pos)
+        return logits, {**cache, **states, "pos": pos + 1}
+
+    @torch.no_grad()
+    def decode_in_place(self, cache: Dict[str, Any], batch: Dict[str, torch.Tensor], pos):
+        """The capture-ready step of the GQA families and the hybrid: ``pos``
+        a 0-d int64 tensor on the cache's device (``cache["pos"]`` is not
+        read), K/V written at it and the hybrid's SSM and conv states
+        written into ``cache`` in place → logits [B,V] fp32.  It reads
+        nothing on the host and makes no shape from the data, so a CUDA
+        graph can hold it; its arithmetic is the eager step's, op for op."""
+        return self._decode_layers(self._embed(batch), cache, pos)[0]
+
+    def _decode_layers(self, x, cache, pos):
+        """The GQA families' and the hybrid's step on the embedded tokens x
+        [B,1,D] → (logits [B,V], the hybrid's new SSM and conv states).
+        ``pos`` an int: the eager step, which stacks the hybrid's new
+        states; a 0-d tensor: ``decode_in_place``, which writes them into
+        ``cache`` and returns none."""
+        cfg = self.cfg
+        static = isinstance(pos, torch.Tensor)
         B = x.shape[0]
-        posb = torch.full((B, 1), pos, device=x.device)
+        posb = pos.expand(B, 1) if static else torch.full((B, 1), pos, device=x.device)
         if cfg.family == "vlm":
             cos, sin = L.mrope_angles(posb[..., None].expand(B, 1, 3), cfg.head_dim,
                                       cfg.mrope_sections, cfg.rope_theta)
@@ -648,7 +697,7 @@ class Model(nn.Module):
         if cfg.family in GQA_FAMILIES:
             for i, lp in enumerate(self.layers):
                 x = self._decode_block(lp, x, cache["k"][i], cache["v"][i], pos, cos, sin)
-            return self._unembed(x)[:, -1], {**cache, "pos": pos + 1}
+            return self._unembed(x)[:, -1], {}
         x0 = x
         sites = cfg.shared_sites()
         ssm, conv = [], []
@@ -658,9 +707,9 @@ class Model(nn.Module):
                 x = x + self._decode_block(self.shared_attn, self._site_input(site, x, x0),
                                            cache["k"][site], cache["v"][site], pos, cos, sin)
             out, s, cc = SSM.mamba2_decode(lp.mamba, lp.norm(x), cache["ssm"][i],
-                                           cache["conv"][i])
+                                           cache["conv"][i], inplace=static)
             x = x + out
             ssm.append(s)
             conv.append(cc)
-        return self._unembed(x)[:, -1], {**cache, "ssm": torch.stack(ssm),
-                                         "conv": torch.stack(conv), "pos": pos + 1}
+        states = {} if static else {"ssm": torch.stack(ssm), "conv": torch.stack(conv)}
+        return self._unembed(x)[:, -1], states

@@ -15,11 +15,14 @@ runs at the model level (``Model.prefill`` / ``Model.decode``).
 Observability.  The engine owns a ``MetricsRegistry`` (``metrics``) whose
 counters are always on and take one ``inc`` a batch:
 ``tf_serve_requests_total``, ``tf_serve_batches_total``,
-``tf_serve_prompt_tokens_total`` (real prompt tokens) and
-``tf_serve_pad_tokens_total`` (B·S less those).  Given a ``Tracer``, it
-records spans on the trace plane (``obs/trace.py``), all stamped by
-``Tracer.begin`` (``ts`` on ``time.time()``, the clock of the profiler's
-device trace) and ended by ``Tracer.end``:
+``tf_serve_prompt_tokens_total`` (real prompt tokens),
+``tf_serve_pad_tokens_total`` (B·S less those),
+``tf_serve_decode_steps_total`` and ``tf_serve_decode_graph_replays_total``
+(the steps that replayed a CUDA graph, ``models.decode_graph``, read off
+the model's own count; over the steps, the graph's hit share).  Given a
+``Tracer``, it records spans on the trace plane (``obs/trace.py``), all
+stamped by ``Tracer.begin`` (``ts`` on ``time.time()``, the clock of the
+profiler's device trace) and ended by ``Tracer.end``:
 
 - ``serve.request``, a root opened in ``submit`` when the tracer's sampler
   admits it, ended as its ``serve|done|<id>`` event is produced (just
@@ -30,7 +33,8 @@ device trace) and ended by ``Tracer.end``:
   its last done event published: ``n``, ``S`` (padded length),
   ``prompt_tokens``, ``pad_tokens``, ``ids``;
 - ``serve.prefill`` (``B``, ``S``, ``prompt_tokens``, ``pad_tokens``) and one
-  ``serve.decode`` a step (``B``, ``pos``), children of the batch, around
+  ``serve.decode`` a step (``B``, ``pos``, ``graph``: whether the step
+  replayed a graph), children of the batch, around
   the model's calls.  No span synchronises the device: on a card a span
   holds the host's side of the call.
 
@@ -79,6 +83,8 @@ class ServingEngine:
         self._batches = self.metrics.counter("tf_serve_batches_total")
         self._prompt_tokens = self.metrics.counter("tf_serve_prompt_tokens_total")
         self._pad_tokens = self.metrics.counter("tf_serve_pad_tokens_total")
+        self._decode_steps = self.metrics.counter("tf_serve_decode_steps_total")
+        self._graph_replays = self.metrics.counter("tf_serve_decode_graph_replays_total")
         _ENGINES[workflow] = self
 
     @property
@@ -141,13 +147,16 @@ class ServingEngine:
             tracer.end(span)
         tok = logits.argmax(-1)[:, None]
         outs = []
+        replays = self.model.decode_graph_replays
         for _ in range(self.max_new_tokens):
             outs.append(tok)
             if batch is not None:
                 span = tracer.begin("serve.decode", batch["trace"], batch["span"], B=B,
                                     pos=cache["pos"])
+                before = self.model.decode_graph_replays
             logits, cache = self.model.decode(cache, {"tokens": tok})
             if batch is not None:
+                span["graph"] = self.model.decode_graph_replays > before
                 tracer.end(span)
             tok = logits.argmax(-1)[:, None]
         # one device-to-host copy for the whole batch
@@ -156,6 +165,8 @@ class ServingEngine:
         self._batches.inc()
         self._prompt_tokens.inc(real)
         self._pad_tokens.inc(B * S - real)
+        self._decode_steps.inc(self.max_new_tokens)
+        self._graph_replays.inc(self.model.decode_graph_replays - replays)
         return [{"id": r["id"], "tokens": generated[i]} for i, r in enumerate(requests)]
 
     def serve(self, ctx, requests: List[Dict[str, Any]]) -> None:

@@ -679,3 +679,89 @@ def test_family_loss_on_the_card_mesh(card_mesh, arch):
     for k, p in model.named_parameters():
         w = want[k]
         assert (p.grad.full_tensor() - w).norm() <= 1e-5 * w.norm(), k
+
+
+def _greedy(model, decode, tokens, max_len, steps):
+    """Prefill, then ``steps`` greedy steps by ``decode`` → (the tokens fed
+    [B, steps], every step's logits [steps, B, V])."""
+    logits, cache = model.prefill({"tokens": tokens}, max_len=max_len)
+    tok = logits.argmax(-1)[:, None]
+    outs, seen = [], []
+    for _ in range(steps):
+        outs.append(tok)
+        logits, cache = decode(cache, {"tokens": tok})
+        seen.append(logits)
+        tok = logits.argmax(-1)[:, None]
+    return torch.cat(outs, 1), torch.stack(seen)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3.2-3b"])
+def test_decode_graph_replays_the_eager_step(cuda, arch):
+    """The smoke model in bf16: greedy decode by the replayed graph gives
+    the eager step's tokens and logits bit for bit over 32 steps, capturing
+    one graph for its (B, max_len) and replaying it at every step, the
+    prefill's cache left as it was; a second (B, max_len) captures a second
+    graph, and the first key again replays the first."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, decode_graph
+
+    cfg = get_config(arch, smoke=True)
+    assert cfg.dtype == torch.bfloat16
+    model = Model(cfg, device="cuda", seed=0)
+    assert decode_graph.replays(model)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(1, cfg.vocab, (4, 24), generator=g, device="cuda")
+    want, want_logits = _greedy(model, model._decode_eager, tokens, 64, 32)
+    assert model.decode_graph_captures == model.decode_graph_replays == 0
+    got, got_logits = _greedy(model, model.decode, tokens, 64, 32)
+    assert (model.decode_graph_captures, model.decode_graph_replays) == (1, 32)
+    assert torch.equal(got, want) and torch.equal(got_logits, want_logits)
+
+    logits, cache = model.prefill({"tokens": tokens}, max_len=64)
+    kept = {k: v.clone() for k, v in cache.items() if k != "pos"}
+    first, _ = model.decode(cache, {"tokens": logits.argmax(-1)[:, None]})
+    assert all(torch.equal(cache[k], v) for k, v in kept.items())
+    again, _ = model.decode(cache, {"tokens": logits.argmax(-1)[:, None]})
+    assert torch.equal(first, again) and torch.equal(first, want_logits[0])
+
+    small, small_logits = _greedy(model, model._decode_eager, tokens[:2], 40, 8)
+    got, got_logits = _greedy(model, model.decode, tokens[:2], 40, 8)
+    assert (model.decode_graph_captures, model.decode_graph_replays) == (2, 42)
+    assert torch.equal(got, small) and torch.equal(got_logits, small_logits)
+    got, _ = _greedy(model, model.decode, tokens, 64, 32)
+    assert (model.decode_graph_captures, model.decode_graph_replays) == (2, 74)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="past the cache"):
+        model.decode({**cache, "pos": 64}, {"tokens": logits.argmax(-1)[:, None]})
+
+
+def test_decode_on_the_card_mesh_stays_eager(card_mesh):
+    """zamba2's smoke model in fp32 on the (1,) mesh: ``decode`` runs the
+    eager step (its parameters are DTensors), captures nothing, and agrees
+    with the meshless eager step within 1e-4·(1 + max|want|)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Resolver, activate, distribute_model
+    from repro_torch.models import Model, decode_graph
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b", smoke=True), dtype=torch.float32)
+    model = Model(cfg, device="cuda", seed=0).float()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    tokens = torch.randint(1, cfg.vocab, (4, 16), generator=g, device="cuda")
+    nxt = {"tokens": tokens[:, -1:]}
+    _, cache = model.prefill({"tokens": tokens}, max_len=32)
+    want, _ = model._decode_eager(cache, nxt)
+    r = Resolver(cfg, card_mesh)
+    distribute_model(model, r)
+    assert not decode_graph.replays(model)
+    batch, nxt = ({"tokens": distribute_tensor(d["tokens"], card_mesh,
+                                               r(("batch", None), d["tokens"].shape))}
+                  for d in ({"tokens": tokens}, nxt))
+    with activate(r):
+        _, cache = model.prefill(batch, max_len=32)
+        got, cache = model.decode(cache, nxt)
+    assert model.decode_graph_captures == model.decode_graph_replays == 0
+    assert cache["pos"] == 17
+    err = float((got.full_tensor() - want).abs().max())
+    assert err <= 1e-4 * (1 + float(want.abs().max())), err

@@ -78,6 +78,25 @@ def test_mamba2_decode_matches_reference():
     assert np.array_equal(tstate.numpy(), state) and np.array_equal(tconv.numpy(), conv)
 
 
+def test_mamba2_decode_in_place_matches_its_pure_form():
+    """``inplace=True`` writes the pure form's new state and conv cache
+    into the tensors it is given, bit for bit, and returns those tensors;
+    the pure form still leaves its inputs as they were."""
+    _, block, x = _mamba()
+    rng = np.random.default_rng(11)
+    state = rng.standard_normal((2, 4, 8, 8)).astype(np.float32)
+    conv = rng.standard_normal((2, 3, 32)).astype(np.float32)
+    xt = torch.from_numpy(x[:, :1])
+    tstate, tconv = torch.from_numpy(state), torch.from_numpy(conv)
+    want, want_state, want_conv = mamba2_decode(block, xt, tstate, tconv)
+    assert np.array_equal(tstate.numpy(), state) and np.array_equal(tconv.numpy(), conv)
+    st, cc = tstate.clone(), tconv.clone()
+    got, new_state, new_conv = mamba2_decode(block, xt, st, cc, inplace=True)
+    assert new_state is st and new_conv is cc
+    assert torch.equal(got, want)
+    assert torch.equal(st, want_state) and torch.equal(cc, want_conv)
+
+
 def test_mamba2_chunked_equals_recurrent():
     """tests/test_models.py's property, on the port: the chunked forward
     equals stepping the recurrence token by token."""
@@ -162,3 +181,40 @@ def test_zamba2_matches_reference():
     # prefill cache gives the same logits
     td_again, _ = tmodel.decode(tcache, {"tokens": ttoks[:, -1:]})
     assert torch.equal(td_again, td)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3.2-3b"])
+def test_decode_in_place_matches_the_eager_step(arch):
+    """The capture-ready step (``Model.decode_in_place``: ``pos`` a 0-d
+    int64 tensor, the states written into its own cache in place) run
+    eagerly for 8 steps after a prefill, the last at ``max_len - 1``,
+    against the int-``pos`` decode: the same greedy tokens, logits and
+    cache within the tolerance above; for the hybrid also against the
+    reference's decode."""
+    jmodel, params, tmodel = _pair(arch)
+    cfg = tmodel.cfg
+    B, S, steps = 2, 12, 8
+    max_len = S + steps
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    logits, cache = tmodel.prefill({"tokens": torch.from_numpy(toks).long()}, max_len=max_len)
+    jl, jcache = jmodel.prefill(params, {"tokens": jnp.asarray(toks)}, max_len=max_len)
+    static = {k: v.clone() for k, v in cache.items() if k != "pos"}
+    pos = torch.zeros((), dtype=torch.int64)
+    tok = logits.argmax(-1)[:, None]
+    for k in range(steps):
+        pos.fill_(S + k)
+        got = tmodel.decode_in_place(static, {"tokens": tok}, pos)
+        want, cache = tmodel.decode(cache, {"tokens": tok})
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+        _close(got, want.numpy(), _tol(want.numpy()))
+        assert set(static) | {"pos"} == set(cache)
+        for key, v in static.items():
+            _close(v, cache[key].numpy(), _tol(cache[key].numpy()))
+        if cfg.family == "hybrid":
+            jd, jcache = jmodel.decode(params, jcache,
+                                       {"tokens": jnp.asarray(tok.numpy().astype(np.int32))})
+            _close(got, jd, _tol(jd))
+            for key, v in static.items():
+                _close(v, jcache[key], _tol(jcache[key]))
+        tok = want.argmax(-1)[:, None]
+    assert int(pos) == max_len - 1 and cache["pos"] == max_len

@@ -172,7 +172,8 @@ def test_traced_engine_records_its_serving_spans(sample):
         assert {k: prefill[0][k] for k in want} == want
         assert {k: b[k] for k in ("n", "S", "prompt_tokens", "pad_tokens")} == \
             {"n": B, "S": S, "prompt_tokens": sum(lens), "pad_tokens": B * S - sum(lens)}
-        assert [(d["B"], d["pos"]) for d in decode] == [(B, S + k) for k in range(3)]
+        assert [(d["B"], d["pos"], d["graph"]) for d in decode] == \
+            [(B, S + k, False) for k in range(3)]
         assert all(c["trace"] == b["trace"] for c in calls)
         assert b["ts"] <= prefill[0]["ts"] < decode[0]["ts"]
         assert prefill[0]["ts"] + prefill[0]["dur"] <= b["ts"] + b["dur"]
@@ -237,8 +238,48 @@ def test_engine_counts_requests_batches_and_prompt_tokens():
     assert port.metrics.snapshot()["counters"] == {
         "tf_serve_requests_total": 6, "tf_serve_batches_total": 2,
         "tf_serve_prompt_tokens_total": sum(lens),
-        "tf_serve_pad_tokens_total": slots - sum(lens)}
+        "tf_serve_pad_tokens_total": slots - sum(lens),
+        "tf_serve_decode_steps_total": 6, "tf_serve_decode_graph_replays_total": 0}
     assert port._roots == {} and port._batch is None
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "zamba2-1.2b"])
+def test_engine_counts_decode_steps_and_graph_replays(arch):
+    """Every decode step counts; on the CPU none replays a graph, and each
+    ``serve.decode`` span says so.  With a model that reports replays (here
+    every other step, as a card's would), the engine counts exactly those
+    and marks their spans."""
+    tracer = Tracer(sample=1.0)
+    _, port = _engines(arch=arch, tracer=tracer)
+    prompts = _prompts(seed=7)
+    _serve(port, prompts)
+    counters = port.metrics.snapshot()["counters"]
+    assert counters["tf_serve_decode_steps_total"] == 6
+    assert counters["tf_serve_decode_graph_replays_total"] == 0
+    assert port.model.decode_graph_captures == port.model.decode_graph_replays == 0
+    decodes = [s for s in tracer.collector.spans if s["name"] == "serve.decode"]
+    assert len(decodes) == 6 and all(s["graph"] is False for s in decodes)
+
+    model, real = port.model, port.model.decode
+    calls = []
+
+    def decode(cache, batch):
+        calls.append(cache["pos"])
+        model.decode_graph_replays += len(calls) % 2
+        return real(cache, batch)
+
+    model.decode = decode
+    for i, p in enumerate(_prompts(seed=8)):
+        port.submit(f"s{i}", p)
+    worker = port.tf.worker(port.workflow)
+    for _ in range(30):
+        worker.run_once()
+    counters = port.metrics.snapshot()["counters"]
+    assert counters["tf_serve_decode_steps_total"] == 12
+    assert counters["tf_serve_decode_graph_replays_total"] == 3
+    decodes = [s for s in tracer.collector.spans if s["name"] == "serve.decode"][6:]
+    assert [s["graph"] for s in sorted(decodes, key=lambda s: s["ts"])] == \
+        [True, False] * 3
 
 
 def test_serve_launcher_dumps_the_engines_counters_and_spans(tmp_path, monkeypatch, capsys):
