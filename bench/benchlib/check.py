@@ -16,13 +16,18 @@ the program and the reference agree on the best token, and rounding moves
 it only where two logits nearly tie.  A cell's ``limits`` (its file under
 ``bench/cells/``) name the readings it compares, each with its limit.
 
-The sample takes requests, and computes a batch's sampled rows together
-(the hybrid's rows are independent).  With the mix's ``check_whole_batches``
-it takes every counted row of a few whole batches instead: the batch with
-the longest prompt first, then batches in an order drawn from the seed.
-Where a batch holds few long rows, as in ``longprompt``, rows computed
-together cost the reference far less time than as many rows of as many
-batches.
+The sample takes requests.  Where the family's rows are independent
+(``ROWS_INDEPENDENT`` of ``bench/families/<family>.py``) the reference
+computes a batch's sampled rows together and nothing more.  Where they are
+not (an MoE whose routing has a capacity drops slots by rank across the
+whole batch), it computes every row of each sampled batch together: the
+padded prompts and served tokens of all its requests, each of which is done
+before a batch is sampled; only the sampled rows, all of them counted, are
+compared.  With the mix's ``check_whole_batches`` it takes every counted
+row of a few whole batches instead: the batch with the longest prompt
+first, then batches in an order drawn from the seed.  Where a batch holds
+few long rows, as in ``longprompt``, rows computed together cost the
+reference far less time than as many rows of as many batches.
 
 With ``control`` the reference is also computed in fp8 (``"fp8"`` in
 ``reference/common.py``) over the same rows, and ``control_gap_max`` is
@@ -31,11 +36,12 @@ puts first: the reading that sets the limit's upper end.
 """
 from __future__ import annotations
 
-import importlib
 import time
 
 import numpy as np
 import torch
+
+from . import spec
 
 
 def sample(run, mix: dict, conf: dict, key: int):
@@ -79,12 +85,15 @@ def gaps(run, weights, conf, groups, traffic, control: bool, device):
     from reference.common import fp32_only
 
     fp32_only()
-    ref = importlib.import_module(f"reference.{conf['family']}")
+    ref = spec.reference(conf)
+    independent = spec.family(conf).ROWS_INDEPENDENT
     out, out8, agree = [], [], []
     for b, rows in groups:
         S = b.S
+        computed = rows if independent else range(len(b.ids))
+        pick = [computed.index(row) for row in rows]
         seqs, served = [], []
-        for row in rows:
+        for row in computed:
             r = run.requests[b.ids[row]]
             prompt = traffic.prompt(r.index)
             seqs.append([0] * (S - len(prompt)) + prompt + r.tokens[:-1])
@@ -95,11 +104,11 @@ def gaps(run, weights, conf, groups, traffic, control: bool, device):
         positions = list(range(S - 1, S - 1 + T))
         lg = ref.logits(weights, conf, tokens, S, positions, "fp32")
         best = lg.max(-1).values
-        out.append((best - lg.gather(-1, got[..., None])[..., 0]).flatten().cpu())
-        agree.append((lg.argmax(-1) == got).flatten().cpu())
+        out.append((best - lg.gather(-1, got[..., None])[..., 0])[pick].flatten().cpu())
+        agree.append((lg.argmax(-1) == got)[pick].flatten().cpu())
         if control:
-            pick = ref.logits(weights, conf, tokens, S, positions, "fp8").argmax(-1)
-            out8.append((best - lg.gather(-1, pick[..., None])[..., 0]).flatten().cpu())
+            first = ref.logits(weights, conf, tokens, S, positions, "fp8").argmax(-1)
+            out8.append((best - lg.gather(-1, first[..., None])[..., 0])[pick].flatten().cpu())
         del lg, tokens
     return (torch.cat(out) if out else torch.zeros(0),
             torch.cat(out8) if out8 else None,

@@ -4,13 +4,17 @@ of each kernel call, and a model step's FLOPs.
 
 Every count reads only a configuration file's published sizes and the
 shape of a batch the window formed, so a change that replaces a kernel is
-read against the same work.  The counts follow the engine's semantics:
-prompts are left-padded to the batch's longest and the pads are attended
-and scanned, so every padded position is work.
+read against the same work.  Which kernel calls a prefill makes and what a
+step costs belong to the model's family: ``kernel_calls``,
+``prefill_flops`` and ``decode_flops`` hand them to
+``bench/families/<family>.py``, which counts with ``k2_call`` and
+``k3_call`` here.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
+
+from .spec import family
 
 # NVIDIA's data sheet, H100 SXM, dense rates
 PEAK_BYTES_S = 3.35e12
@@ -48,50 +52,19 @@ def k3_call(B: int, S: int, H: int, P: int, N: int, Q: int) -> Tuple[float, floa
     return flops, n_bytes
 
 
-def hybrid_dims(conf: dict) -> dict:
-    d = conf["hidden_size"]
-    di = conf["mamba_expand"] * d
-    L = conf["num_hidden_layers"]
-    return dict(d=d, di=di, Hs=di // conf["mamba_headdim"], P=conf["mamba_headdim"],
-                N=conf["mamba_d_state"], L=L, V=conf["vocab_size"],
-                H=conf["num_attention_heads"], hd=conf["shared_block_head_dim"],
-                f=conf["intermediate_size"], Q=conf["ssd_chunk"],
-                sites=len(range(0, L, conf["shared_block_every"])))
-
-
 def kernel_calls(conf: dict, B: int, S: int) -> Dict[str, List[tuple]]:
-    """The K2 and K3 calls one prefill of [B, S] makes, by their shapes."""
-    if conf["family"] == "hybrid":
-        m = hybrid_dims(conf)
-        return {"k2": [(B, S, m["H"], m["hd"], m["hd"])] * m["sites"],
-                "k3": [(B, S, m["Hs"], m["P"], m["N"], m["Q"])] * m["L"]}
-    raise ValueError(f"no counts for family {conf['family']!r}")
-
-
-def _hybrid_token(m: dict) -> float:
-    """FLOPs a token takes outside attention's pairs and the scan."""
-    mamba = 2 * (2 * m["d"] * m["di"] + 2 * m["d"] * m["N"] + m["d"] * m["Hs"]
-                 + m["di"] * m["d"]) + 2 * 4 * m["di"]
-    site = 2 * (2 * m["d"] * m["d"] + 4 * m["d"] * m["H"] * m["hd"] + 3 * m["d"] * m["f"])
-    return m["L"] * mamba + m["sites"] * site
+    """The kernel calls one prefill of [B, S] makes, by kernel ("k2",
+    "k3") and shape: the count of the configuration's family
+    (``bench/families/<family>.py``)."""
+    return family(conf).kernel_calls(conf, B, S)
 
 
 def prefill_flops(conf: dict, B: int, S: int) -> float:
-    """Model FLOPs of one prefill of [B, S] (the unembedding at the last
-    position only, as the engine computes it)."""
-    calls = kernel_calls(conf, B, S)
-    attn = sum(k2_call(*c)[0] for c in calls["k2"])
-    scan = sum(k3_call(*c)[0] for c in calls["k3"])
-    unembed = 2 * B * conf["hidden_size"] * conf["vocab_size"]
-    return B * S * _hybrid_token(hybrid_dims(conf)) + attn + scan + unembed
+    """Model FLOPs of one prefill of [B, S], by the configuration's family."""
+    return family(conf).prefill_flops(conf, B, S)
 
 
 def decode_flops(conf: dict, B: int, pos: int) -> float:
-    """Model FLOPs of one decode step of B tokens at position ``pos`` (the
-    step attends to pos + 1 positions)."""
-    T = pos + 1
-    unembed = 2 * B * conf["hidden_size"] * conf["vocab_size"]
-    m = hybrid_dims(conf)
-    scan = m["L"] * 4 * m["Hs"] * m["N"] * m["P"]              # state update and C·h
-    attn = m["sites"] * 2 * 2 * m["H"] * m["hd"] * T
-    return B * (_hybrid_token(m) + scan + attn) + unembed
+    """Model FLOPs of one decode step of B tokens at position ``pos``, by
+    the configuration's family."""
+    return family(conf).decode_flops(conf, B, pos)

@@ -263,7 +263,7 @@ def run_cell(spec, cell_name: str, seed: int, seconds: float, trace: bool, devic
 
     device = torch.device(device)
     cell = spec.cell(cell_name)
-    conf = conf or spec.config(cell["config"])
+    conf = spec.bind(conf or spec.config(cell["config"]))
     mix = mix or spec.mix(cell["traffic"])
     settings = settings if settings is not None else spec.settings(cell_name)
     run = Run(conf, mix, seconds)

@@ -1,19 +1,13 @@
 """Small configurations and mixes, in the files' own schema, for runs of
-the harness on the CPU (the tests).  The cells' files hold the real ones."""
+the harness on the CPU (the tests).  The cells' files hold the real ones;
+each family's module holds its small configuration."""
 from __future__ import annotations
 
 import copy
 import json
 
-from .spec import BENCH
+from .spec import BENCH, load
 
-HYBRID = {
-    "name": "zamba2-smoke", "family": "hybrid", "hidden_size": 64, "num_hidden_layers": 4,
-    "mamba_d_state": 16, "mamba_headdim": 16, "mamba_expand": 2, "mamba_d_conv": 4,
-    "shared_block_every": 2, "num_attention_heads": 4, "num_key_value_heads": 4,
-    "shared_block_head_dim": 16, "intermediate_size": 128, "vocab_size": 256,
-    "rms_norm_eps": 1e-5, "rope_theta": 10000, "ssd_chunk": 16, "assumed": {},
-}
 
 def mix(name: str, **over) -> dict:
     """The cell's mix ``name`` cut to CPU sizes: short prompts, few new
@@ -33,7 +27,9 @@ def mix(name: str, **over) -> dict:
 
 
 def config(family: str = "hybrid") -> dict:
-    return copy.deepcopy({"hybrid": HYBRID}[family])
+    """The family's CPU-size configuration (``SMOKE`` of
+    ``bench/families/<family>.py``)."""
+    return copy.deepcopy(load(BENCH, "families", family).SMOKE)
 
 
 def settings(limit: float, commit_policy: str = "every_batch") -> dict:

@@ -10,20 +10,54 @@ sits in a file of its own, which the harness finds by that name:
   numbers its correctness check compares (each read at the cell's own load)
   and the runtime's ``commit_policy`` where the cell's deployment sets one,
 - a per-layer metric's reader: ``bench/metrics/<metric>.py``, a module
-  with ``read(run) -> float | None``.
+  with ``read(run) -> float | None``,
+- a model family (a configuration's ``family``): ``bench/families/<family>.py``,
+  what the harness needs to know of the port's models of that family, and
+  ``bench/reference/<family>.py``, the plain reference that judges them.
 
-So a later change adds a cell, a mix or a metric as new files and new
-entries, and edits none that are here.
+So a later change adds a family, a configuration, a cell, a mix or a
+metric as new files and new entries, and edits none that are here.
 """
 from __future__ import annotations
 
+import hashlib
+import importlib
+import importlib.machinery
 import importlib.util
 import json
+import sys
 from pathlib import Path
 from typing import Dict, List
 
 BENCH = Path(__file__).resolve().parent.parent
 ROOT = BENCH.parent
+
+
+def load(bench, kind: str, name: str):
+    """``<bench>/<kind>/<name>.py``, imported as a module of a package made
+    for the directory ``<bench>/<kind>`` and named after its path (so its
+    relative imports find the files beside it), once a process."""
+    directory = (Path(bench) / kind).resolve()
+    package = f"_bench_{kind}_{hashlib.sha1(str(directory).encode()).hexdigest()[:12]}"
+    if package not in sys.modules:
+        made = importlib.machinery.ModuleSpec(package, None, is_package=True)
+        made.submodule_search_locations = [str(directory)]
+        sys.modules[package] = importlib.util.module_from_spec(made)
+    return importlib.import_module(f"{package}.{name}")
+
+
+def family(conf: dict):
+    """``families/<family>.py`` of the configuration's family, from the
+    bench directory of the ``Spec`` that runs it (``Spec.bind``), else this
+    one: ``model_config``, ``rule``, ``kernel_calls``, ``prefill_flops``,
+    ``decode_flops``, ``SMOKE`` and ``ROWS_INDEPENDENT``."""
+    return load(conf.get("_bench", BENCH), "families", conf["family"])
+
+
+def reference(conf: dict):
+    """``reference/<family>.py`` of the configuration's family, found as
+    ``family`` finds its module: the plain model, ``logits(...)``."""
+    return load(conf.get("_bench", BENCH), "reference", conf["family"])
 
 
 class Spec:
@@ -47,6 +81,11 @@ class Spec:
                 conf.setdefault("name", name)
                 return conf
         raise KeyError(f"no config {name!r} in BENCHMARK.json")
+
+    def bind(self, conf: dict) -> dict:
+        """``conf`` whose family's modules come from this Spec's bench
+        directory (under ``_bench``, which ``family`` and ``reference`` read)."""
+        return {**conf, "_bench": str(self.bench)}
 
     def settings(self, cell: str) -> dict:
         return json.loads((self.bench / "cells" / f"{cell}.json").read_text())

@@ -1,5 +1,5 @@
-"""A configuration file → the port's ``ModelConfig``, and the weights the
-benchmark draws for it.
+"""The weights the benchmark draws for a configuration, and the port's
+``Model`` that serves them.
 
 The weights are the benchmark's, not the program's: drawn from ``--seed``
 on the device by a ``torch.Generator``, in bf16 (the type they are served
@@ -8,69 +8,30 @@ view of it scaled in place.  They are loaded into a ``Model`` built on the
 ``meta`` device (which draws nothing) with ``assign=True``, so the port
 serves these very tensors and the plain reference reads the same ones.
 
-How each parameter is drawn is the benchmark's rule, by its name:
-RMSNorm weights and Mamba2's skip are 1, the conv bias 0; Mamba2's
-``a_log`` and ``dt_bias`` follow the published Mamba2 initialisation
-(A uniform in [1, 16], dt log-uniform in [0.001, 0.1], floored at 1e-4);
-the embedding is N(0, 0.02²); every other weight is N(0, 1/fan_in), its
-fan-in being the dims it is summed over.
+The configuration's family (``bench/families/<family>.py``) maps the file
+to the port's ``ModelConfig`` and gives, by a parameter's name and shape,
+the kind of draw and its scale: ``normal`` (N(0, scale²)), ``ones``,
+``zeros``, or the published Mamba2 initialisations ``a_log`` (A uniform in
+[1, 16]) and ``dt_bias`` (dt log-uniform in [0.001, 0.1], floored at 1e-4).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
+from .spec import family
 from .traffic import seed_key
 
 
-def model_config(conf: dict):
-    """The port's ``ModelConfig`` for a configuration file.  Raises where
-    the file asks for something the port cannot run as stated."""
-    from repro_torch.models import ModelConfig
-
-    fam = conf["family"]
-    eps = conf.get("rms_norm_eps", 1e-5)
-    if abs(eps - 1e-5) > 1e-12:
-        raise ValueError(f"{conf['name']}: the port's RMSNorm takes eps 1e-5, not {eps}")
-    if fam == "hybrid":
-        return ModelConfig(
-            arch=conf["name"], family="hybrid", n_layers=conf["num_hidden_layers"],
-            d_model=conf["hidden_size"], n_heads=conf["num_attention_heads"],
-            n_kv_heads=conf["num_key_value_heads"], d_ff=conf["intermediate_size"],
-            vocab=conf["vocab_size"], head_dim=conf["shared_block_head_dim"],
-            rope_theta=float(conf["rope_theta"]), ssm_state=conf["mamba_d_state"],
-            ssm_headdim=conf["mamba_headdim"], ssm_expand=conf["mamba_expand"],
-            ssm_chunk=conf["ssd_chunk"], attn_every=conf["shared_block_every"],
-            scan_layers=False)
-    raise ValueError(f"{conf['name']}: no mapping for family {fam!r}")
-
-
-def _rule(name: str, shape: Tuple[int, ...]):
-    """(kind, scale) of the parameter ``name``: kind is normal, ones,
-    zeros, a_log or dt_bias."""
-    leaf = name.rsplit(".", 1)[-1]
-    if leaf == "w" or leaf == "d_skip":
-        return "ones", None
-    if leaf == "conv_b":
-        return "zeros", None
-    if leaf in ("a_log", "dt_bias"):
-        return leaf, None
-    if name == "embed":
-        return "normal", 0.02
-    if leaf == "conv_w":
-        return "normal", shape[0] ** -0.5
-    if leaf == "wo" and len(shape) == 3:           # attention out [H, hd, d]
-        return "normal", (shape[0] * shape[1]) ** -0.5
-    return "normal", shape[0] ** -0.5
-
-
-def draw(shapes: Dict[str, Tuple[int, ...]], seed: int, device) -> Dict[str, torch.Tensor]:
-    """Every parameter of ``shapes`` in bf16 on ``device``, from ``seed``."""
+def draw(shapes: Dict[str, Tuple[int, ...]], seed: int, device,
+         rule: Callable) -> Dict[str, torch.Tensor]:
+    """Every parameter of ``shapes`` in bf16 on ``device``, from ``seed``,
+    each drawn as ``rule(name, shape)`` says."""
     gen = torch.Generator(device=device).manual_seed(seed_key(seed))
     bf16 = torch.bfloat16
-    rules = {n: _rule(n, s) for n, s in shapes.items()}
+    rules = {n: rule(n, s) for n, s in shapes.items()}
     normal = [n for n, (kind, _) in rules.items() if kind == "normal"]
     # one draw for every normal weight; views start on 128-element bounds
     offsets, total = {}, 0
@@ -105,10 +66,11 @@ def build(conf: dict, seed: int, device):
     by parameter name)."""
     from repro_torch.models import Model
 
-    cfg = model_config(conf)
-    model = Model(cfg, device="meta")
+    fam = family(conf)
+    model = Model(fam.model_config(conf), device="meta")
     axes = {n: p.axes for n, p in model.named_parameters()}
-    weights = draw({n: tuple(p.shape) for n, p in model.named_parameters()}, seed, device)
+    weights = draw({n: tuple(p.shape) for n, p in model.named_parameters()}, seed, device,
+                   fam.rule)
     model.load_state_dict(weights, strict=True, assign=True)
     for n, p in model.named_parameters():
         p.axes = axes[n]

@@ -1,5 +1,6 @@
-"""The yardstick's counts against hand counts at small sizes, and the
-readers' arithmetic on synthetic runs."""
+"""The yardstick's counts against hand counts at small sizes, pinned at the
+cells' sizes, and the readers' arithmetic on synthetic runs."""
+import hashlib
 import importlib.util
 import json
 import math
@@ -7,8 +8,8 @@ import types
 
 import pytest
 
-from benchlib import counts, readers, smoke
-from benchlib.spec import ROOT
+from benchlib import counts, readers, smoke, weights
+from benchlib.spec import ROOT, Spec, family
 
 
 def test_bound_is_chip_smokes():
@@ -39,10 +40,9 @@ def _matrix_flops(conf, fam):
     """2 · the elements of every weight matrix a token passes through, read
     off the port's model built on meta (an independent count of the
     configuration's linear work)."""
-    from benchlib.weights import model_config
     from repro_torch.models import Model
 
-    model = Model(model_config(conf), device="meta")
+    model = Model(family(conf).model_config(conf), device="meta")
     total = 0
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -70,7 +70,7 @@ def test_prefill_flops_by_matrix(S):
 
 def test_decode_flops_by_hand():
     conf = smoke.config("hybrid")
-    m = counts.hybrid_dims(conf)
+    m = family(conf).hybrid_dims(conf)
     # one more position attended: per site and head the scores and the
     # context over it, 2 · 2 · hd
     step = counts.decode_flops(conf, 3, 4) - counts.decode_flops(conf, 3, 3)
@@ -82,16 +82,37 @@ def test_decode_flops_by_hand():
 
 
 def test_model_configs_of_the_cells():
-    from benchlib.spec import Spec
-    from benchlib.weights import model_config
-
     spec = Spec()
     for c in spec.data["configs"]:
-        cfg = model_config(spec.config(c["name"]))
-        assert cfg.family == "hybrid"
-    z = model_config(spec.config("zamba2-1.2b"))
+        conf = spec.config(c["name"])
+        cfg = family(conf).model_config(conf)
+        assert (cfg.arch, cfg.family) == (c["name"], conf["family"])
+    conf = spec.config("zamba2-1.2b")
+    z = family(conf).model_config(conf)
     assert (z.n_layers, z.d_model, z.head_dim, z.ssm_state, z.ssm_headdim) == (38, 2048, 64, 64, 64)
     assert z.shared_sites() == [0, 6, 12, 18, 24, 30, 36]
+
+
+def test_zamba2_counts_are_pinned():
+    """The counts that every reader of the zamba2 cells rests on, exactly."""
+    conf = Spec().config("zamba2-1.2b")
+    assert [counts.prefill_flops(conf, B, S) for B, S in
+            ((8, 4096), (8, 3400), (64, 1024), (1, 32))] == [
+        104798653251584.0, 86438411239424.0, 203831161913344.0, 97787445248.0]
+    assert counts.decode_flops(conf, 64, 1055) == 206858878976
+    assert counts.decode_flops(conf, 8, 4099) == 27253800960
+    assert counts.kernel_calls(conf, 8, 4096) == {"k2": [(8, 4096, 32, 64, 64)] * 7,
+                                                  "k3": [(8, 4096, 64, 64, 64, 128)] * 38}
+
+
+def test_smoke_weights_are_pinned():
+    """The weights the benchmark draws for the smoke hybrid from a large
+    seed: every leaf's fp32 sum, in the model's order, hashed."""
+    _, w = weights.build(smoke.config("hybrid"), 2**31 + 3, "cpu")
+    fp = weights.fingerprint(w)
+    assert fp.shape == (66,)
+    assert hashlib.sha256(fp.numpy().tobytes()).hexdigest() == (
+        "937bf0d09c8c04afdd50dbb3c3c20b13563c8fc27cdbe57267526d547a7aae55")
 
 
 def _synthetic_run(conf):
@@ -127,8 +148,6 @@ def test_roofline_reader():
 
 def test_cells_have_their_files():
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
-    from benchlib.spec import Spec
-
     s = Spec()
     for cell in spec["workloads"]:
         s.config(cell["config"]), s.mix(cell["traffic"])

@@ -1,7 +1,8 @@
 """The harness on the CPU at small sizes: the idle share from a synthetic
 timeline, the tail's definition and the drain, the import check, a cell,
-a mix and a metric picked up from new files alone, and ``correct``
-failing when the timed path is broken."""
+a mix, a metric and a model family picked up from new files alone, the
+check's whole batches where a family's rows depend on each other, and
+``correct`` failing when the timed path is broken."""
 import ast
 import json
 import shutil
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from benchlib import check, harness, imports, smoke, trace
+from benchlib import spec as spec_mod
 from benchlib.spec import BENCH, ROOT, Spec
 
 CPU = torch.device("cpu")
@@ -150,8 +152,8 @@ def test_a_broken_timed_path_is_not_correct(fault, cell, family, mixname):
 
 def test_new_config_mix_and_metric_from_new_files_alone(tmp_path):
     bench = tmp_path / "bench"
-    for sub in ("configs", "mixes", "metrics", "cells"):
-        shutil.copytree(BENCH / sub, bench / sub)
+    for sub in ("configs", "mixes", "metrics", "cells", "families", "reference"):
+        shutil.copytree(BENCH / sub, bench / sub, ignore=shutil.ignore_patterns("__pycache__"))
     data = json.loads((ROOT / "BENCHMARK.json").read_text())
     # a new configuration, mix and per-layer metric: new files and entries
     (bench / "configs" / "zamba2-tiny.json").write_text(json.dumps(smoke.config("hybrid")))
@@ -173,6 +175,80 @@ def test_new_config_mix_and_metric_from_new_files_alone(tmp_path):
     assert res["correct"]
     assert res["metrics"]["batches_formed.tiny"]["value"] > 0
     assert "decode_step_ms.chat" not in res["metrics"]
+
+
+FAMILY = "toyhybrid"        # a family that no file of bench/ names
+
+
+def test_new_family_from_new_files_alone(tmp_path):
+    """A family is two new files, ``families/<family>.py`` and
+    ``reference/<family>.py``, found under the Spec's own bench directory;
+    this one serves the hybrid's model and takes its rows as dependent, so
+    the check computes whole batches."""
+    assert not [p for p in BENCH.rglob("*") if FAMILY in p.name]
+    bench = tmp_path / "bench"
+    for sub in ("configs", "mixes", "metrics", "cells", "families", "reference"):
+        (bench / sub).mkdir(parents=True)
+    (bench / "families" / f"{FAMILY}.py").write_text(
+        "from families.hybrid import (SMOKE, decode_flops, kernel_calls, model_config,  # noqa\n"
+        "                             prefill_flops, rule)\n"
+        "ROWS_INDEPENDENT = False\n")
+    (bench / "reference" / f"{FAMILY}.py").write_text(
+        "from reference.hybrid import logits  # noqa\n")
+    conf = dict(smoke.config("hybrid"), name="toy-tiny", family=FAMILY)
+    (bench / "configs" / "toy-tiny.json").write_text(json.dumps(conf))
+    (bench / "mixes" / "tiny.json").write_text(json.dumps(smoke.mix("chat", rate_per_s=30.0)))
+    (bench / "cells" / "toy-tiny.tiny.json").write_text(json.dumps(smoke.settings(0.05)))
+    data = json.loads((ROOT / "BENCHMARK.json").read_text())
+    data["configs"].append({"name": "toy-tiny", "source": "test", "reduced": [],
+                            "file": "bench/configs/toy-tiny.json", "why": "test"})
+    data["workloads"].append({"name": "toy-tiny.tiny", "config": "toy-tiny",
+                              "traffic": "tiny", "chips": 1, "why": "test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(data))
+    spec = Spec(tmp_path)
+    keep = {}
+    res = harness.run_cell(spec, "toy-tiny.tiny", 2**31 + 45, 2.0, False, CPU,
+                           time.perf_counter(), keep=keep)
+    assert res["correct"] and res["info"]["compared_tokens"] > 0
+    fam = spec_mod.family(keep["run"].conf)
+    assert not fam.ROWS_INDEPENDENT and Path(fam.__file__).parent == bench / "families"
+    assert Path(spec_mod.reference(keep["run"].conf).__file__).parent == bench / "reference"
+
+
+@pytest.mark.parametrize("independent", [True, False])
+def test_the_check_computes_whole_batches_where_rows_depend(tmp_path, independent):
+    """A stub reference records the rows it is given: the sampled rows
+    alone where the family's rows are independent, else every row of the
+    batch in its order; either way only the sampled rows are compared."""
+    bench = tmp_path / "bench"
+    for sub in ("families", "reference"):
+        (bench / sub).mkdir(parents=True)
+    (bench / "families" / "stubrows.py").write_text(f"ROWS_INDEPENDENT = {independent}\n")
+    (bench / "reference" / "stubrows.py").write_text(
+        "import torch\n"
+        "CALLS = []\n"
+        "def logits(w, conf, tokens, S, positions, prec):\n"
+        "    CALLS.append((tokens.tolist(), S, list(positions), prec))\n"
+        "    best = torch.zeros(tokens.shape[0], len(positions), dtype=torch.long)\n"
+        "    return torch.nn.functional.one_hot(best, conf['vocab_size']).float()\n")
+    conf = Spec(ROOT, bench=bench).bind({"family": "stubrows", "vocab_size": 8})
+    lengths = [5, 9, 7, 4, 6, 3]
+    run = _synthetic_batches(2, 3, lengths)
+    run.conf = conf
+    for r in run.requests.values():
+        r.tokens = [0, 0]
+    run.requests["r4"].tokens = [1, 1]      # batch 1's middle row, not sampled
+    traffic = types.SimpleNamespace(prompt=lambda i: list(range(1, lengths[i] + 1)))
+    b = run.batches[1]
+    g, g8, agree = check.gaps(run, {}, conf, [(b, [0, 2])], traffic, True, CPU)
+    calls = spec_mod.reference(conf).CALLS
+    assert [c[3] for c in calls] == ["fp32", "fp8"]
+    rows = [0, 2] if independent else [0, 1, 2]
+    want = [[0] * (b.S - lengths[3 + row]) + list(range(1, lengths[3 + row] + 1))
+            + run.requests[b.ids[row]].tokens[:-1] for row in rows]
+    assert all(c[:3] == (want, b.S, [b.S - 1, b.S]) for c in calls)
+    # the middle row's tokens would read a gap of 1: it is computed, not compared
+    assert g.tolist() == [0.0] * 4 and g8.tolist() == [0.0] * 4 and agree.all()
 
 
 def _synthetic_batches(n_batches, rows, lengths):
