@@ -1,5 +1,6 @@
-"""Transformer layers: RMSNorm, RoPE and Qwen2-VL's M-RoPE, GQA attention
-(naive, chunked online-softmax and decode) and the SwiGLU MLP.
+"""Transformer layers: RMSNorm, RoPE (with YaRN's scaling, as DeepSeek-V2
+publishes it) and Qwen2-VL's M-RoPE, GQA attention (naive, chunked
+online-softmax and decode) and the SwiGLU MLP.
 
 Plain functions on tensors, with the JAX package's parameter layouts
 (``wq [d_model, H, hd]``, ``wo [H, hd, d_model]``, ``wg [d_model, d_ff]``, …)
@@ -21,8 +22,10 @@ the resolver gives for its logical axes (``distributed.sharding``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from contextvars import ContextVar
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -261,22 +264,91 @@ def rms_norm(x, w, eps=1e-5):
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, d: int, device=None):
+    """RMSNorm over the last dim with weight ``w`` and the model's ``eps``
+    (``ModelConfig.rms_eps``), which a caller of the functional
+    ``rms_norm`` passes on as ``norm.eps``."""
+
+    def __init__(self, d: int, device=None, eps: float = 1e-5):
         super().__init__()
         self.w = make_param(None, (d,), ("embed",), init="ones", device=device)
+        self.eps = eps
 
     def forward(self, x):
-        return rms_norm(x, self.w)
+        return rms_norm(x, self.w, self.eps)
 
 
 # -- RoPE ----------------------------------------------------------------------------
-def rope_angles(positions, head_dim: int, theta: float = 10000.0):
-    """positions [...]: int -> cos/sin [..., head_dim/2] in fp32."""
+def yarn_mscale(scale: float, mscale: float) -> float:
+    """YaRN's attention factor: 0.1 · mscale · ln(scale) + 1 (1 at scale ≤ 1)."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRN:
+    """YaRN's RoPE scaling as DeepSeek-V2 publishes it (``rope_scaling``
+    with ``type: yarn``; the reference implementation's
+    ``DeepseekV2YarnRotaryEmbedding``).  Over the rotary dims' half, pair i
+    turns at θ^(-2i/dim) (extrapolated) where it makes more than
+    ``beta_fast`` turns over ``original_max_position_embeddings``, at that
+    over ``factor`` (interpolated) where it makes fewer than ``beta_slow``,
+    and on a linear ramp between; cos and sin are scaled by
+    mscale(factor, mscale) / mscale(factor, mscale_all_dim), and the
+    attention's softmax scale by mscale(factor, mscale_all_dim)²
+    (``softmax_factor``)."""
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+    def correction_range(self, dim: int, theta: float):
+        """The first and last pair index of the ramp, clamped to [0, dim - 1]."""
+        def pair(turns):
+            return (dim * math.log(self.original_max_position_embeddings
+                                   / (turns * 2 * math.pi))) / (2 * math.log(theta))
+
+        low = math.floor(pair(self.beta_fast))
+        high = math.ceil(pair(self.beta_slow))
+        return max(low, 0), min(high, dim - 1)
+
+    def inv_freq(self, dim: int, theta: float, device=None):
+        """The blended frequencies [dim/2] in fp32."""
+        pairs = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+        extra = 1.0 / theta ** pairs
+        inter = 1.0 / (self.factor * theta ** pairs)
+        low, high = self.correction_range(dim, theta)
+        ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+                           / max(high - low, 0.001), 0, 1)
+        return inter * ramp + extra * (1 - ramp)
+
+    @property
+    def cos_sin_factor(self) -> float:
+        return yarn_mscale(self.factor, self.mscale) / yarn_mscale(self.factor,
+                                                                   self.mscale_all_dim)
+
+    @property
+    def softmax_factor(self) -> float:
+        if not self.mscale_all_dim:
+            return 1.0
+        return yarn_mscale(self.factor, self.mscale_all_dim) ** 2
+
+
+def rope_angles(positions, head_dim: int, theta: float = 10000.0,
+                scaling: Optional[YaRN] = None):
+    """positions [...]: int -> cos/sin [..., head_dim/2] in fp32, with
+    ``scaling``'s frequencies and cos/sin factor where given."""
     half = head_dim // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=positions.device) / half)
+    if scaling is None:
+        freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                        device=positions.device) / half)
+    else:
+        freqs = scaling.inv_freq(head_dim, theta, positions.device)
     ang = positions.float()[..., None] * freqs
-    return torch.cos(ang), torch.sin(ang)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if scaling is not None and scaling.cos_sin_factor != 1.0:
+        cos, sin = cos * scaling.cos_sin_factor, sin * scaling.cos_sin_factor
+    return cos, sin
 
 
 def apply_rope(x, cos, sin):

@@ -1,7 +1,14 @@
 """Decoder LM: config → init / forward / prefill / decode.
 
 ``ModelConfig`` keeps every field of the JAX package's, with torch dtypes in
-place of jnp ones.  ``Model`` is an ``nn.Module`` for these families:
+place of jnp ones, and adds DeepSeek-V2's published forms, each off by
+default (so the defaults compute the JAX package's function): RMSNorm's
+``rms_eps`` in every norm, group-limited routing (``n_group``,
+``topk_group``), unnormalised and scaled gates (``norm_topk_prob``,
+``routed_scaling_factor``), YaRN (``rope_scaling``, MLA's), the dropless
+capacity (``capacity_factor=None``), one chip's share of the routed
+experts (``experts_held``) and pads that take no routed expert
+(``unrouted_pad``).  ``Model`` is an ``nn.Module`` for these families:
 
 dense   llama-style GQA transformer (granite-20b, deepseek-67b, yi-9b,
         llama3.2-3b)
@@ -70,14 +77,23 @@ class ModelConfig:
     vocab: int
     head_dim: Optional[int] = None
     rope_theta: float = 10000.0
+    rope_scaling: Optional[L.YaRN] = None   # MLA's RoPE: None plain, else YaRN
     rms_eps: float = 1e-5
     # MoE
     n_experts: int = 0
     top_k: int = 0
     n_shared_experts: int = 0
     d_ff_expert: int = 0
-    capacity_factor: float = 1.25
+    capacity_factor: Optional[float] = 1.25   # None: dropless
     moe_layer_start: int = 0       # layers < start use the dense FFN
+    n_group: int = 0               # group-limited routing; 0: greedy over all experts
+    topk_group: int = 0
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    experts_held: Optional[Tuple[int, int]] = None   # (first, count); None: all
+    # a token id: each row's leading run of it (the serving engine's left
+    # pads, token 0) takes no routed expert in a full-sequence pass
+    unrouted_pad: Optional[int] = None
     # MLA
     q_lora: int = 0
     kv_lora: int = 0
@@ -119,6 +135,19 @@ class ModelConfig:
             self.head_dim = self.d_model // self.n_heads
         if self.d_ff_expert == 0 and self.n_experts:
             self.d_ff_expert = self.d_ff
+        if self.n_group and (self.n_experts % self.n_group
+                             or not 0 < self.topk_group <= self.n_group):
+            raise ValueError(f"{self.arch}: {self.n_experts} experts in {self.n_group} "
+                             f"groups, {self.topk_group} kept")
+        if self.rope_scaling is not None and self.family != "mla_moe":
+            raise ValueError(f"{self.arch}: rope_scaling (YaRN) is MLA's; the {self.family} "
+                             f"family takes plain RoPE")
+
+    @property
+    def routing(self) -> MOE.Rule:
+        """The routing rule, as ``moe.route`` takes it."""
+        return MOE.Rule(self.n_group, self.topk_group, self.norm_topk_prob,
+                        self.routed_scaling_factor)
 
     @property
     def supports_long_context(self) -> bool:
@@ -144,7 +173,8 @@ class ModelConfig:
         def mlp(f):
             return 3 * d * f                                 # wg, wu, wd
 
-        moe = (d * self.n_experts + self.n_experts * mlp(self.d_ff_expert)
+        held = self.experts_held[1] if self.experts_held else self.n_experts
+        moe = (d * self.n_experts + held * mlp(self.d_ff_expert)
                + mlp(self.d_ff_expert * self.n_shared_experts))          # router, experts, shared
         H, ql, kvl = self.n_heads, self.q_lora, self.kv_lora
         mla = (d * ql + ql + ql * H * (self.nope_head_dim + self.rope_head_dim)
@@ -269,19 +299,19 @@ class Layer(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device=None,
                  mla: bool = False, moe: bool = False, d_ff: Optional[int] = None):
         super().__init__()
-        self.ln1 = L.RMSNorm(cfg.d_model, device)
+        self.ln1 = L.RMSNorm(cfg.d_model, device, cfg.rms_eps)
         if mla:
             self.attn = MLA.MLA(gen, cfg.d_model, cfg.n_heads, cfg.q_lora, cfg.kv_lora,
                                 cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim,
-                                device)
+                                device, cfg.rms_eps)
         else:
             self.attn = L.GQA(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                               cfg.head_dim, device)
-        self.ln2 = L.RMSNorm(cfg.d_model, device)
+        self.ln2 = L.RMSNorm(cfg.d_model, device, cfg.rms_eps)
         if moe:
             self.mlp = None
             self.moe = MOE.MoE(gen, cfg.d_model, cfg.d_ff_expert, cfg.n_experts,
-                               cfg.n_shared_experts, device)
+                               cfg.n_shared_experts, device, held=cfg.experts_held)
         else:
             self.mlp = L.MLP(gen, cfg.d_model, d_ff or cfg.d_ff, device)
             self.moe = None
@@ -290,9 +320,10 @@ class Layer(nn.Module):
 class MambaLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device=None):
         super().__init__()
-        self.norm = L.RMSNorm(cfg.d_model, device)
+        self.norm = L.RMSNorm(cfg.d_model, device, cfg.rms_eps)
         self.mamba = SSM.Mamba2(gen, cfg.d_model, cfg.ssm_expand * cfg.d_model,
-                                cfg.ssm_state, cfg.ssm_headdim, device=device)
+                                cfg.ssm_state, cfg.ssm_headdim, device=device,
+                                eps=cfg.rms_eps)
 
 
 class XLSTMLayer(nn.Module):
@@ -301,10 +332,11 @@ class XLSTMLayer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, slstm: bool, device=None):
         super().__init__()
-        self.norm = L.RMSNorm(cfg.d_model, device)
-        self.slstm = XL.SLSTM(gen, cfg.d_model, cfg.n_heads, device) if slstm else None
+        self.norm = L.RMSNorm(cfg.d_model, device, cfg.rms_eps)
+        self.slstm = (XL.SLSTM(gen, cfg.d_model, cfg.n_heads, device, cfg.rms_eps)
+                      if slstm else None)
         self.mlstm = None if slstm else XL.MLSTM(gen, cfg.d_model, cfg.n_heads,
-                                                 cfg.ssm_expand, device)
+                                                 cfg.ssm_expand, device, cfg.rms_eps)
 
 
 class Model(nn.Module):
@@ -324,7 +356,7 @@ class Model(nn.Module):
             self.embed = make_param(gen, (cfg.vocab, d), ("vocab", "embed"), 0.02, device=device)
             self.lm_head = make_param(gen, (d, cfg.vocab), ("embed", "vocab"),
                                       d ** -0.5, device=device)
-        self.final_norm = L.RMSNorm(d, device)
+        self.final_norm = L.RMSNorm(d, device, cfg.rms_eps)
         if fam in GQA_FAMILIES:
             self.layers = nn.ModuleList(Layer(cfg, gen, device, moe=fam == "moe")
                                         for _ in range(cfg.n_layers))
@@ -350,6 +382,10 @@ class Model(nn.Module):
         self._decode_graphs: Dict[Tuple[int, int], DG.DecodeGraph] = {}
         self.decode_graph_captures = 0
         self.decode_graph_replays = 0
+        # the MoE layers' running sums (``moe.moe_forward``'s ``counts``):
+        # slots routed, held here, expert rows computed, held slots dropped;
+        # int64 [4] on the device, made at the first MoE call outside autograd
+        self.moe_counts: Optional[torch.Tensor] = None
 
     def _apply(self, fn, *args, **kwargs):
         # a graph reads the parameters at the addresses they had when it was
@@ -403,27 +439,47 @@ class Model(nn.Module):
             logits = L.einsum("bsd,dv->bsv", x, self.lm_head.to(x.dtype))
         return logits.float()
 
-    def _ffn(self, lp: Layer, x):
-        """x + the layer's FFN of ln2(x) → (x, the MoE's aux loss or None)."""
+    def _ffn(self, lp: Layer, x, pads=None, ragged: bool = False):
+        """x + the layer's FFN of ln2(x) → (x, the MoE's aux loss or None).
+        ``pads`` [B,S] and ``ragged`` (a full-sequence pass): ``moe.route``'s."""
         cfg = self.cfg
         if lp.moe is None:
             return _residual(x, L.mlp_forward(lp.mlp, _normed(lp.ln2, x))), None
-        m, aux = MOE.moe_forward(lp.moe, _normed(lp.ln2, x), cfg.top_k, cfg.capacity_factor)
+        m, aux = MOE.moe_forward(lp.moe, _normed(lp.ln2, x), cfg.top_k, cfg.capacity_factor,
+                                 counts=self._moe_counts(x), rule=cfg.routing, ragged=ragged,
+                                 pads=pads)
         return _residual(x, m), aux
 
-    def _block(self, lp: Layer, x, cos, sin):
+    def _pads(self, batch: Dict[str, torch.Tensor]):
+        """[B,S] bool: each row's leading run of ``cfg.unrouted_pad``, or None."""
+        pad = self.cfg.unrouted_pad
+        if pad is None or not self.cfg.n_experts:
+            return None
+        return (batch["tokens"] == pad).long().cumprod(-1).bool()
+
+    def _moe_counts(self, x) -> Optional[torch.Tensor]:
+        """``moe_counts`` on x's device, for a call outside autograd off a
+        mesh (serving's); None elsewhere (training, the mesh)."""
+        if torch.is_grad_enabled() or L._is_dtensor(x):
+            return None
+        if self.moe_counts is None or self.moe_counts.device != x.device:
+            self.moe_counts = torch.zeros(4, dtype=torch.int64, device=x.device)
+        return self.moe_counts
+
+    def _block(self, lp: Layer, x, cos, sin, pads=None):
         cfg = self.cfg
         h, kv = L.gqa_forward(lp.attn, _normed(lp.ln1, x), cos, sin, q_chunk=cfg.q_chunk,
                               kv_chunk=cfg.kv_chunk, unroll=cfg.unroll_attention)
-        x, aux = self._ffn(lp, _residual(x, h))
+        x, aux = self._ffn(lp, _residual(x, h), pads, ragged=True)
         return x, kv, aux
 
-    def _mla_block(self, lp: Layer, x, positions):
+    def _mla_block(self, lp: Layer, x, positions, pads=None):
         cfg = self.cfg
         h, latent = MLA.mla_forward(lp.attn, _normed(lp.ln1, x), positions, cfg.nope_head_dim,
                                     cfg.rope_head_dim, cfg.rope_theta, cfg.q_chunk,
-                                    cfg.kv_chunk, unroll=cfg.unroll_attention)
-        x, aux = self._ffn(lp, _residual(x, h))
+                                    cfg.kv_chunk, unroll=cfg.unroll_attention,
+                                    rope_scaling=cfg.rope_scaling)
+        x, aux = self._ffn(lp, _residual(x, h), pads, ragged=True)
         return x, latent, aux
 
     def _mla_layers(self):
@@ -455,11 +511,12 @@ class Model(nn.Module):
             return XL.slstm_forward(lp.slstm, h, cfg.n_heads, return_state=True)
         return XL.mlstm_forward(lp.mlstm, h, cfg.n_heads, cfg.mlstm_chunk, return_state=True)
 
-    def _layers(self, x, cos, sin, cache=None):
+    def _layers(self, x, cos, sin, cache=None, pads=None):
         """Every layer over the full sequence → (x, the MoE layers' summed
         aux loss).  With ``cache``, write the attention K/V (mla_moe: the
         latent and the RoPE key) at positions [0, S) and, for the hybrid,
-        each Mamba2 layer's final state and conv cache.  Each block runs
+        each Mamba2 layer's final state and conv cache; ``pads`` [B,S]
+        take no routed expert (``_pads``).  Each block runs
         under ``_remat``; the activation between blocks is constrained to
         ("batch", "act_seq") where the reference constrains it."""
         cfg = self.cfg
@@ -471,9 +528,9 @@ class Model(nn.Module):
             positions = torch.arange(S, device=x.device)
             for i, lp in enumerate(self._mla_layers() if mla else self.layers):
                 if mla:
-                    x, (a, b), aux = _remat(self._mla_block, cfg)(lp, x, positions)
+                    x, (a, b), aux = _remat(self._mla_block, cfg)(lp, x, positions, pads)
                 else:
-                    x, (a, b), aux = _remat(self._block, cfg)(lp, x, cos, sin)
+                    x, (a, b), aux = _remat(self._block, cfg)(lp, x, cos, sin, pads)
                 # the reference leaves mla_moe's layer 0 and its prefill as they are
                 if not mla or (i and cache is None):
                     x = L.lsc(x, "batch", "act_seq", None)
@@ -531,7 +588,7 @@ class Model(nn.Module):
         the MoE layers' summed aux loss, 0 without MoE)."""
         x = self._embed(batch)
         cos, sin = self._rope(batch, x.shape[1], x.device)
-        x, aux = self._layers(x, cos, sin)
+        x, aux = self._layers(x, cos, sin, pads=self._pads(batch))
         return self._unembed(x), aux
 
     def loss(self, batch: Dict[str, torch.Tensor]):
@@ -616,7 +673,7 @@ class Model(nn.Module):
         cache = self.init_cache(B, max_len or S)
         x = self._embed(batch)
         cos, sin = self._rope(batch, S, tokens.device)
-        x, _ = self._layers(x, cos, sin, cache)
+        x, _ = self._layers(x, cos, sin, cache, self._pads(batch))
         cache["pos"] = S
         # the last position alone goes through the head: the reference
         # computes every position's logits and keeps the last
@@ -663,7 +720,7 @@ class Model(nn.Module):
             for i, lp in enumerate(self._mla_layers()):
                 h, _, _ = MLA.mla_decode(lp.attn, lp.ln1(x), cache["ckv"][i], cache["kr"][i],
                                          pos, cfg.nope_head_dim, cfg.rope_head_dim,
-                                         cfg.rope_theta)
+                                         cfg.rope_theta, cfg.rope_scaling)
                 x, _ = self._ffn(lp, x + h)
             return self._unembed(x)[:, -1], {**cache, "pos": pos + 1}
         logits, states = self._decode_layers(x, cache, pos)

@@ -32,11 +32,54 @@ split on the batch run per rank (``_dispatch``, ``_combine``) with stated
 gradient placements; the expert products go through the mesh-aware
 ``layers.einsum``.  DTensor has no strategy for the routing's bincount and
 cannot shard the index ops' backward.
+
+DeepSeek-V2's published routing and its expert-parallel share (options off
+by default, so the defaults compute the reference's function):
+
+- ``n_group``/``topk_group``: group-limited greedy routing (its
+  ``MoEGate``): the softmax over every expert; a group of E/n_group
+  consecutive experts scores its largest probability; the top
+  ``topk_group`` groups are kept (ties to the lower group, by the same
+  stable sort) and the other groups' probabilities set to 0; the top k
+  are taken from what is left.  ``norm_topk_prob=False`` leaves the k
+  weights unnormalised; ``routed_scaling_factor`` multiplies them.
+- ``held=(first, count)`` (``MoE``'s, from ``ModelConfig.experts_held``):
+  the layer holds the weights of experts [first, first + count) only, as
+  one chip of an expert-parallel layer does, routes over all E (the
+  router keeps its E outputs) and computes its own experts' part: a slot
+  whose expert is held elsewhere adds nothing here.  The shared experts
+  are added on every chip.  Off a mesh only; the exchange between chips
+  is not built.
+- ``capacity_factor=None``: dropless, as the published inference path
+  computes every selected expert.  The caller says how: ``ragged`` (a
+  full-sequence pass, the prefill's) reads the held experts' counts on
+  the host, one read a layer, and runs each expert's products over its
+  own rows alone, in the slots' sorted order, so no row is padded (a
+  padded [E, C, D] batch at C = the largest count would cost what the
+  busiest expert holds times every expert).  On a card the read is
+  queued before the shared experts' MLP, so the device computes that
+  while the host waits for the counts and launches the experts'
+  products (``_read_behind``).  Otherwise (a decode step) C = T: a token
+  picks an expert at most once, so T is always enough, and at a decode
+  batch's few tokens the products are bound by reading the weights, so
+  the rows a read would save cost nothing.  Off a mesh only.
+- ``pads`` [T] (the model's, from ``ModelConfig.unrouted_pad``): tokens
+  that take no routed slot, the serving engine's left pads.  They hold no
+  token, and a batch's pads share one hidden state, so routed they would
+  all follow one routing decision, which rounding can flip near a tie.
+  They still pass through the shared experts.
+
+``moe_forward`` adds, where given ``counts`` (an int64 [4] on the device,
+the model's running sums; no host read), the slots routed (pads' left
+out), the slots whose expert is held here, the expert rows computed (held
+experts × C, or the held slots where ragged) and the held slots dropped
+past the capacity.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -47,19 +90,42 @@ from .common import make_param
 from .layers import MLP, _is_dtensor, einsum, lsc, matmul, mlp_forward
 
 
+@dataclasses.dataclass(frozen=True)
+class Rule:
+    """How a token picks its experts (the module's doc): ``n_group`` 0 is
+    greedy over every expert, else the ``topk_group`` best of ``n_group``
+    groups; ``norm_topk_prob`` renormalises the k weights and
+    ``routed_scaling_factor`` multiplies them.  The defaults are the JAX
+    package's rule."""
+    n_group: int = 0
+    topk_group: int = 0
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+
+
 class MoE(nn.Module):
+    """The router over all ``n_experts``; the expert weights of ``held``
+    (first, count) only, all of them by default."""
+
     def __init__(self, gen, d_model: int, d_ff_expert: int, n_experts: int,
-                 n_shared: int = 0, device=None):
+                 n_shared: int = 0, device=None, held=None):
         super().__init__()
+        if held is not None:
+            first, count = held
+            if not (0 <= first and 0 < count and first + count <= n_experts):
+                raise ValueError(f"experts held {held} are not a range of the {n_experts}")
+            held = (first, count)
+        self.held = held
+        n_held = n_experts if held is None else held[1]
         self.router = make_param(gen, (d_model, n_experts), ("embed", None), d_model ** -0.5,
                                  device=device)
-        self.wg = make_param(gen, (n_experts, d_model, d_ff_expert),
+        self.wg = make_param(gen, (n_held, d_model, d_ff_expert),
                              ("experts", "embed", "ffn"), d_model ** -0.5,
                              device=device)
-        self.wu = make_param(gen, (n_experts, d_model, d_ff_expert),
+        self.wu = make_param(gen, (n_held, d_model, d_ff_expert),
                              ("experts", "embed", "ffn"), d_model ** -0.5,
                              device=device)
-        self.wd = make_param(gen, (n_experts, d_ff_expert, d_model),
+        self.wd = make_param(gen, (n_held, d_ff_expert, d_model),
                              ("experts", "ffn", "embed"), d_ff_expert ** -0.5,
                              device=device)
         self.shared = (MLP(gen, d_model, d_ff_expert * n_shared, device)
@@ -74,44 +140,98 @@ def capacity(n_tokens: int, top_k: int, n_experts: int, capacity_factor: float) 
 @dataclasses.dataclass
 class Routing:
     """Where each of the T·k token-slots goes.  ``top_e`` [T,k]: its
-    expert; ``kept`` [T,k]: the slot is inside its expert's capacity;
-    ``where`` [T,k]: its row in the flat [E·C] expert batch (meaningful
-    where kept); ``token_idx`` [E,C]: the token each expert row reads (rows
-    past an expert's count read a clamped slot and get gate 0, as in the
-    reference); ``gate`` [E,C]: the renormalised routing weight, fp32."""
+    expert; ``kept`` [T,k]: the slot's expert is held here and the slot is
+    inside its capacity; ``where`` [T,k]: its row in the flat [E·C] expert
+    batch of the held experts (meaningful where kept); ``token_idx``
+    [E,C]: the token each expert row reads (rows past an expert's count
+    read a clamped slot and get gate 0, as in the reference); ``gate``
+    [E,C]: the routing weight, fp32; ``held`` [T,k]: the slot's expert is
+    held here and its token is not a pad (all True by default).  Ragged
+    (dropless, ``route``'s ``ragged``): ``counts`` holds each held expert's
+    count on the device, ``token_idx`` and ``gate`` are flat [T·k] over the
+    slots in their sorted order, the held slots first, and ``where`` a
+    slot's place in it; ``ragged_rows`` reads the counts into ``sizes``,
+    keeps the held slots alone and sets ``cap`` to the largest count."""
     top_e: torch.Tensor
     kept: torch.Tensor
     where: torch.Tensor
     token_idx: torch.Tensor
     gate: torch.Tensor
     aux_loss: torch.Tensor
+    held: torch.Tensor
     cap: int
+    counts: Optional[torch.Tensor] = None
+    sizes: Optional[List[int]] = None
+
+    @property
+    def rows(self) -> int:
+        """The expert rows the products compute."""
+        return sum(self.sizes) if self.sizes is not None else self.gate.numel()
 
     @property
     def dropped(self) -> int:
-        """Token-slots past their expert's capacity."""
-        return int((~self.kept).sum())
+        """Held token-slots past their expert's capacity."""
+        return int((self.held & ~self.kept).sum())
+
+    def ragged_rows(self, sizes: List[int]) -> None:
+        """Ragged: the held experts' counts, read on the host.  With no held
+        slot, one row is kept for the combine to read (it keeps none)."""
+        n = max(sum(sizes), 1)
+        self.sizes, self.cap = sizes, max(sizes, default=1)
+        self.token_idx, self.gate = self.token_idx[:n], self.gate[:n]
 
 
-def route(router, xf, top_k: int, capacity_factor: float) -> Routing:
+def route(router, xf, top_k: int, capacity_factor, rule: Rule = Rule(), held=None,
+          ragged: bool = False, pads=None) -> Routing:
     """xf [T,D] → the routing of its T·k token-slots and the Switch aux
     loss.  The router runs in fp32, the reference's default, which no
     caller of either package changes.  On a mesh the routing is computed
-    whole on every rank (``_route_on_mesh``)."""
+    whole on every rank (``_route_on_mesh``); ``held``, ``pads`` and the
+    dropless capacity (``capacity_factor=None``) are off a mesh only.
+    Dropless, ``ragged`` leaves the held experts' counts on the device
+    for the caller to read; else C = T."""
     probs = torch.softmax(matmul(xf.float(), router.float()), dim=-1)    # [T,E]
     if _is_dtensor(probs):
-        return _route_on_mesh(probs, top_k, capacity_factor)
-    cap = capacity(xf.shape[0], top_k, router.shape[-1], capacity_factor)
-    return Routing(*_route_probs(probs, top_k, cap), cap)
+        if held is not None or capacity_factor is None or pads is not None:
+            raise ValueError("an MoE layer holding a share of the experts, dropless or "
+                             "leaving pads unrouted runs off a mesh only: the exchange "
+                             "between chips is not built")
+        return _route_on_mesh(probs, top_k, capacity_factor, rule)
+    T = xf.shape[0]
+    cap = ((None if ragged else T) if capacity_factor is None
+           else capacity(T, top_k, router.shape[-1], capacity_factor))
+    return Routing(*_route_probs(probs, top_k, cap, held, rule, pads))
 
 
-def _route_probs(probs, top_k: int, cap: int):
-    """The integer work of the routing, from probs [T,E] → (top_e, kept,
-    where, token_idx, gate, aux_loss): ``Routing``'s tensors."""
-    T, E = probs.shape
-    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+def _top_k(probs, top_k: int, rule: Rule = Rule()):
+    """probs [T,E] → (top_p, top_e) [T,k], greedy over every expert or,
+    with ``rule.n_group``, over the ``topk_group`` best groups (see the
+    module's doc)."""
+    scores = probs
+    n_group, topk_group = rule.n_group, rule.topk_group
+    if n_group:
+        T, E = probs.shape
+        groups = probs.reshape(T, n_group, E // n_group).amax(-1)          # [T,G]
+        best = torch.sort(groups, dim=-1, descending=True, stable=True)[1][:, :topk_group]
+        keep = torch.zeros_like(groups, dtype=torch.bool).scatter_(1, best, True)
+        scores = probs.masked_fill(~keep.repeat_interleave(E // n_group, dim=1), 0.0)
+    top_p, top_e = torch.sort(scores, dim=-1, descending=True, stable=True)
     top_p, top_e = top_p[:, :top_k], top_e[:, :top_k]              # ties: lower index
-    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    if rule.norm_topk_prob:
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    if rule.routed_scaling_factor != 1.0:
+        top_p = top_p * rule.routed_scaling_factor
+    return top_p, top_e
+
+
+def _route_probs(probs, top_k: int, cap, held=None, rule: Rule = Rule(), pads=None):
+    """The integer work of the routing, from probs [T,E] → (top_e, kept,
+    where, token_idx, gate, aux_loss, held slots, cap, counts): ``Routing``'s
+    fields.  ``held`` (first, count) gives the experts held here, all by
+    default; ``pads`` [T] the tokens that take no slot; ``cap`` None is
+    dropless over each expert's own rows."""
+    T, E = probs.shape
+    top_p, top_e = _top_k(probs, top_k, rule)
 
     # load-balancing auxiliary loss (Switch): E * sum_e f_e * p_e
     TK = T * top_k
@@ -120,24 +240,47 @@ def _route_probs(probs, top_k: int, cap: int):
         0, flat_e, torch.ones_like(flat_e))
     aux_loss = E * torch.sum(probs.mean(0) * (counts.float() / TK))
 
-    sort_idx = torch.argsort(flat_e, stable=True)                  # [TK]
-    offsets = torch.cumsum(counts, 0) - counts
+    # the held experts' slots sort first, by expert; the others, and the
+    # pads', into one last bucket, n, which keeps no slot
+    first, n = held if held is not None else (0, E)
+    local = flat_e - first if first else flat_e
+    mine = (local >= 0) & (local < n)
+    bucketed = held is not None or pads is not None
+    if pads is not None:
+        mine = mine & ~pads.repeat_interleave(top_k)
+    key = torch.where(mine, local, n) if bucketed else local
+    if bucketed:
+        counts = torch.zeros(n + 1, dtype=flat_e.dtype, device=probs.device).index_add_(
+            0, key, torch.ones_like(key))[:n]
+    sort_idx = torch.argsort(key, stable=True)                     # [TK]
     rank = torch.empty_like(sort_idx)
     rank[sort_idx] = torch.arange(TK, device=probs.device)
-    within = rank - offsets[flat_e]                                # slot's place in its expert
+    mine_tk = mine.reshape(T, top_k)
+    if cap is None:
+        # the held slots sort first, by expert; a slot's row is its rank
+        where = torch.where(mine, rank, 0).reshape(T, top_k)
+        return (top_e, mine_tk, where, sort_idx // top_k, top_p.reshape(TK)[sort_idx],
+                aux_loss, mine_tk, 0, counts)
+    offsets = torch.cumsum(counts, 0) - counts
+    if bucketed:
+        offsets = torch.cat([offsets, counts.sum()[None]])
+    within = rank - offsets[key]                                   # slot's place in its expert
     kept = within < cap
-    where = flat_e * cap + torch.clamp(within, max=cap - 1)
+    if bucketed:
+        kept = kept & mine
+        key = key.clamp(max=n - 1)
+    where = key * cap + torch.clamp(within, max=cap - 1)
 
     col = torch.arange(cap, device=probs.device)
-    slot = torch.clamp(offsets[:, None] + col[None, :], max=TK - 1)   # [E,C]
+    slot = torch.clamp(offsets[:n, None] + col[None, :], max=TK - 1)   # [n,C]
     valid = col[None, :] < counts[:, None]
     token_slot = sort_idx[slot]
     gate = top_p.reshape(TK)[token_slot] * valid
     return (top_e, kept.reshape(T, top_k), where.reshape(T, top_k), token_slot // top_k,
-            gate, aux_loss)
+            gate, aux_loss, mine_tk, cap, None)
 
 
-def _route_on_mesh(probs, top_k: int, capacity_factor: float) -> Routing:
+def _route_on_mesh(probs, top_k: int, capacity_factor: float, rule: Rule) -> Routing:
     """The routing of a DTensor probs [T,E] (the tokens split on the batch's
     mesh dims): probs are made whole, T·E·4 bytes on every rank (67 MB at
     phi3.5-moe × train_4k's 1 M tokens and 16 experts, 671 MB at
@@ -153,8 +296,8 @@ def _route_on_mesh(probs, top_k: int, capacity_factor: float) -> Routing:
     whole = [Replicate()] * mesh.ndim
     T, E = probs.shape
     cap = capacity(T, top_k, E, capacity_factor)
-    outs = _mesh.run(lambda p: _route_probs(p, top_k, cap), (probs,), (whole,),
-                     (whole,) * 6, mesh)
+    outs = _mesh.run(lambda p: _route_probs(p, top_k, cap, rule=rule)[:7], (probs,), (whole,),
+                     (whole,) * 7, mesh)
     return Routing(*outs, cap)
 
 
@@ -217,7 +360,7 @@ def _combine(out_e, where, kept, xf, experts):
     experts, each rank adds the rows of its experts, zeros elsewhere, and
     the output is their partial sum; where the tokens are split, each rank
     takes its own tokens' rows (made whole on a dim that splits both)."""
-    E, C, D = out_e.shape
+    D = out_e.shape[-1]
     k = where.shape[1]
 
     def add(rows, idx, keep):
@@ -231,6 +374,7 @@ def _combine(out_e, where, kept, xf, experts):
         return add(out_e, where, kept)
     from torch.distributed.tensor import Partial, Replicate, Shard
 
+    C = out_e.shape[1]
     mesh = out_e.device_mesh
     dims = _split_dims(xf, experts)
     tokens = [i for i, (tok, _) in enumerate(dims) if tok]
@@ -258,23 +402,71 @@ def _combine(out_e, where, kept, xf, experts):
                      (ge, whole, whole))
 
 
-def moe_forward(p: MoE, x, top_k: int, capacity_factor: float = 1.25):
-    """x [B,S,D] → (out [B,S,D], aux_loss)."""
+def _read_behind(counts, work):
+    """counts (int64, on the device) → (its list on the host, ``work()``).
+    On a card the copy is queued before ``work``'s kernels and the host
+    waits for the copy alone, so the device computes ``work`` while the
+    host reads the counts and launches what they size."""
+    if counts.device.type != "cuda":
+        return counts.tolist(), work()
+    host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
+    host.copy_(counts, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+    out = work()
+    copied.synchronize()
+    return host.tolist(), out
+
+
+def _ragged_experts(p: MoE, xs, sizes):
+    """Each held expert's SwiGLU over its own rows of xs [N,D], which come
+    in runs of ``sizes`` by expert → [N,D] (one zero row where N = 0, for
+    the combine to read)."""
+    dt = xs.dtype
+    outs, a = [], 0
+    for e, n in enumerate(sizes):
+        if n:
+            x = xs[a:a + n]
+            h = F.silu(x @ p.wg[e].to(dt)) * (x @ p.wu[e].to(dt))
+            outs.append(h @ p.wd[e].to(dt))
+            a += n
+    return torch.cat(outs) if outs else xs.new_zeros(1, xs.shape[-1])
+
+
+def moe_forward(p: MoE, x, top_k: int, capacity_factor=1.25, counts=None,
+                rule: Rule = Rule(), ragged: bool = False, pads=None):
+    """x [B,S,D] → (out [B,S,D], aux_loss).  ``ragged`` and ``pads`` [B,S]:
+    ``route``'s; ``counts``: see the module's doc."""
     B, S, D = x.shape
     dt = x.dtype
     xf = x.reshape(B * S, D)
-    r = route(p.router, xf, top_k, capacity_factor)
+    flat_pads = None if pads is None else pads.reshape(B * S)
+    r = route(p.router, xf, top_k, capacity_factor, rule, held=p.held, ragged=ragged,
+              pads=flat_pads)
     experts = p.wg.placements if _is_dtensor(p.wg) else ()
-    expert_in = lsc(_dispatch(xf, r.token_idx, experts), "experts", None, None)
-    g = einsum("ecd,edf->ecf", expert_in, p.wg.to(dt))
-    u = einsum("ecd,edf->ecf", expert_in, p.wu.to(dt))
-    h = lsc(F.silu(g) * u, "experts", None, "ffn")
-    out_e = einsum("ecf,efd->ecd", h, p.wd.to(dt))
+    shared = None
+    if r.counts is None:
+        expert_in = lsc(_dispatch(xf, r.token_idx, experts), "experts", None, None)
+        g = einsum("ecd,edf->ecf", expert_in, p.wg.to(dt))
+        u = einsum("ecd,edf->ecf", expert_in, p.wu.to(dt))
+        h = lsc(F.silu(g) * u, "experts", None, "ffn")
+        out_e = einsum("ecf,efd->ecd", h, p.wd.to(dt))
+    else:
+        sizes, shared = _read_behind(
+            r.counts, lambda: None if p.shared is None else mlp_forward(p.shared, x))
+        r.ragged_rows(sizes)
+        out_e = _ragged_experts(p, xf[r.token_idx], sizes)
     out_e = out_e * r.gate[..., None].to(dt)
     # each token's k contributions in the order of its choices; a dropped
-    # slot adds 0
+    # slot, or one whose expert is held elsewhere, adds 0
     out = lsc(_combine(out_e, r.where, r.kept, xf, experts).reshape(B, S, D),
               "batch", "seq", None)
     if p.shared is not None:
-        out = out + mlp_forward(p.shared, x)
+        out = out + (mlp_forward(p.shared, x) if shared is None else shared)
+    if counts is not None:
+        counts[0].add_(r.top_e.numel() if flat_pads is None
+                       else (~flat_pads).sum() * top_k)
+        counts[1].add_(r.held.sum())
+        counts[2].add_(r.rows)
+        counts[3].add_((r.held & ~r.kept).sum())
     return out, r.aux_loss

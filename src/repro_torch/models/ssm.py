@@ -28,7 +28,7 @@ from .layers import RMSNorm, einsum, lsc, rms_norm
 
 class Mamba2(nn.Module):
     def __init__(self, gen, d_model: int, d_inner: int, n_state: int,
-                 headdim: int = 64, conv_width: int = 4, device=None):
+                 headdim: int = 64, conv_width: int = 4, device=None, eps: float = 1e-5):
         super().__init__()
         H = d_inner // headdim
         self.wz = make_param(gen, (d_model, d_inner), ("embed", "ffn"), d_model ** -0.5,
@@ -45,7 +45,7 @@ class Mamba2(nn.Module):
         self.dt_bias = make_param(gen, (H,), (None,), init="zeros", device=device)
         self.a_log = make_param(gen, (H,), (None,), init="zeros", device=device)  # a = -exp(a_log)
         self.d_skip = make_param(gen, (H,), (None,), init="ones", device=device)
-        self.out_norm = RMSNorm(d_inner, device)
+        self.out_norm = RMSNorm(d_inner, device, eps)
         self.wo = make_param(gen, (d_inner, d_model), ("ffn", "embed"), d_inner ** -0.5,
                              device=device)
 
@@ -89,7 +89,7 @@ def mamba2_forward(p: Mamba2, x, chunk: int = 128, return_state: bool = False,
     y, state = ssd(xh, dt, B_, C_, a, chunk, decay_dtype=decay_dtype)
     y = y + xh * p.d_skip.to(dtype)[None, None, :, None]
     y = y.reshape(xb.shape)
-    y = rms_norm(y, p.out_norm.w) * F.silu(z)
+    y = rms_norm(y, p.out_norm.w, p.out_norm.eps) * F.silu(z)
     out = torch.einsum("bsf,fd->bsd", y, p.wo.to(dtype))
     if return_state:
         W = p.conv_w.shape[0]
@@ -125,7 +125,7 @@ def mamba2_decode(p: Mamba2, x, state, conv_cache, inplace: bool = False):
     y = einsum("bn,bhnp->bhp", C_, state)
     y = y + xh * p.d_skip.float()[None, :, None]
     y = y.reshape(xb.shape).to(dtype)
-    y = rms_norm(y, p.out_norm.w) * F.silu(z)
+    y = rms_norm(y, p.out_norm.w, p.out_norm.eps) * F.silu(z)
     out = torch.einsum("bf,fd->bd", y, p.wo.to(dtype))[:, None, :]
     if inplace:
         return out, state, conv_cache.copy_(window[:, 1:, :])

@@ -54,7 +54,8 @@ class MLSTM(nn.Module):
     """q/k/v are per-head block-diagonal projections (as in the xLSTM
     paper's mLSTM cell): di²/H parameters each instead of di²."""
 
-    def __init__(self, gen, d_model: int, n_heads: int, expand: int = 2, device=None):
+    def __init__(self, gen, d_model: int, n_heads: int, expand: int = 2, device=None,
+                 eps: float = 1e-5):
         super().__init__()
         di = expand * d_model
         Dh = di // n_heads
@@ -69,7 +70,7 @@ class MLSTM(nn.Module):
         self.wi = make_param(gen, (di, n_heads), ("ffn", None), di ** -0.5, device=device)
         self.wf = make_param(gen, (di, n_heads), ("ffn", None), di ** -0.5, device=device)
         self.f_bias = make_param(gen, (n_heads,), (None,), init="ones", device=device)
-        self.out_norm = RMSNorm(di, device)
+        self.out_norm = RMSNorm(di, device, eps)
         self.w_down = make_param(gen, (di, d_model), ("ffn", "embed"), di ** -0.5, device=device)
 
 
@@ -199,7 +200,7 @@ def mlstm_forward(p: MLSTM, x, n_heads: int, chunk: int = 128, return_state: boo
     q, k, v, f_pre, i_pre = _mlstm_qkvg(p, xm, n_heads)
     y, state = _mlstm_cell(q, k, v, f_pre, i_pre, p.f_bias, chunk)
     y = y.reshape(xm.shape).to(dtype)
-    y = rms_norm(y, p.out_norm.w) * F.silu(z)
+    y = rms_norm(y, p.out_norm.w, p.out_norm.eps) * F.silu(z)
     out = einsum("bsf,fd->bsd", y, p.w_down.to(dtype))
     if return_state:
         return out, state
@@ -215,14 +216,14 @@ def mlstm_decode(p: MLSTM, x, state, n_heads: int):
     q, k, v, f_pre, i_pre = _mlstm_qkvg(p, xm, n_heads)
     y, (C, n) = _mlstm_cell(q, k, v, f_pre, i_pre, p.f_bias, 1, state)
     y = y.reshape(xm.shape).to(dtype)
-    y = rms_norm(y, p.out_norm.w) * F.silu(z)
+    y = rms_norm(y, p.out_norm.w, p.out_norm.eps) * F.silu(z)
     out = einsum("bsf,fd->bsd", y, p.w_down.to(dtype))
     return out, (C, n)
 
 
 # ---------------------------------------------------------------- sLSTM ----
 class SLSTM(nn.Module):
-    def __init__(self, gen, d_model: int, n_heads: int, device=None):
+    def __init__(self, gen, d_model: int, n_heads: int, device=None, eps: float = 1e-5):
         super().__init__()
         dh = d_model // n_heads
         self.wx = make_param(gen, (d_model, 4 * d_model), ("embed", "ffn"), d_model ** -0.5,
@@ -230,7 +231,7 @@ class SLSTM(nn.Module):
         self.r = make_param(gen, (n_heads, dh, 4 * dh), ("heads", None, None), dh ** -0.5,
                             device=device)
         self.bias = make_param(gen, (4 * d_model,), ("ffn",), init="zeros", device=device)
-        self.out_norm = RMSNorm(d_model, device)
+        self.out_norm = RMSNorm(d_model, device, eps)
         self.wo = make_param(gen, (d_model, d_model), ("embed", "embed2"), d_model ** -0.5,
                              device=device)
 
@@ -314,7 +315,7 @@ def slstm_forward(p: SLSTM, x, n_heads: int, return_state: bool = False):
     also the final (h, c, n)."""
     gx = matmul(x, p.wx.to(x.dtype)) + p.bias.to(x.dtype)
     hs, state = _slstm_scan(gx, p.r, n_heads)
-    y = rms_norm(hs.to(x.dtype), p.out_norm.w)
+    y = rms_norm(hs.to(x.dtype), p.out_norm.w, p.out_norm.eps)
     out = einsum("bsd,de->bse", y, p.wo.to(x.dtype))
     if return_state:
         return out, state
@@ -325,5 +326,5 @@ def slstm_decode(p: SLSTM, x, state, n_heads: int):
     """x [B,1,d], state (h, c, n) → (out [B,1,d], (h, c, n))."""
     gx = matmul(x, p.wx.to(x.dtype)) + p.bias.to(x.dtype)
     hs, state = _slstm_scan(gx, p.r, n_heads, state)
-    y = rms_norm(hs.to(x.dtype), p.out_norm.w)
+    y = rms_norm(hs.to(x.dtype), p.out_norm.w, p.out_norm.eps)
     return einsum("bsd,de->bse", y, p.wo.to(x.dtype)), state

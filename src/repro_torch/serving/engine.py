@@ -19,7 +19,13 @@ counters are always on and take one ``inc`` a batch:
 ``tf_serve_pad_tokens_total`` (B·S less those),
 ``tf_serve_decode_steps_total`` and ``tf_serve_decode_graph_replays_total``
 (the steps that replayed a CUDA graph, ``models.decode_graph``, read off
-the model's own count; over the steps, the graph's hit share).  Given a
+the model's own count; over the steps, the graph's hit share), and the MoE
+layers' ``tf_serve_moe_routed_slots_total``, ``_held_slots_total`` (slots
+whose expert this chip holds), ``_expert_rows_total`` (rows the expert
+products computed: held experts × capacity) and ``_dropped_slots_total``
+(held slots past the capacity), read off the model's device-side running
+sums (``Model.moe_counts``) once a batch, after the decode loop's
+synchronising read of the tokens; 0 for a model without MoE layers.  Given a
 ``Tracer``, it records spans on the trace plane (``obs/trace.py``), all
 stamped by ``Tracer.begin`` (``ts`` on ``time.time()``, the clock of the
 profiler's device trace) and ended by ``Tracer.end``:
@@ -32,7 +38,11 @@ profiler's device trace) and ended by ``Tracer.end``:
 - ``serve.batch``, a root for every fired batch, from the action's start to
   its last done event published: ``n``, ``S`` (padded length),
   ``prompt_tokens``, ``pad_tokens``, ``ids``;
-- ``serve.prefill`` (``B``, ``S``, ``prompt_tokens``, ``pad_tokens``) and one
+- ``serve.prefill`` (``B``, ``S``, ``prompt_tokens``, ``pad_tokens``; for a
+  model with MoE layers also the prefill's own ``moe_routed_slots``,
+  ``moe_held_slots``, ``moe_expert_rows`` and ``moe_dropped_slots``, the
+  one place a span reads the device: the running sums before and after
+  the prefill) and one
   ``serve.decode`` a step (``B``, ``pos``, ``graph``: whether the step
   replayed a graph), children of the batch, around
   the model's calls.  No span synchronises the device: on a card a span
@@ -55,6 +65,14 @@ from ..obs.metrics import MetricsRegistry
 from ..obs.trace import Tracer, context_of_span, inject
 
 _ENGINES: Dict[str, "ServingEngine"] = {}
+
+# ``Model.moe_counts``'s entries, in order, as counters and span attributes
+MOE_COUNTS = ("routed_slots", "held_slots", "expert_rows", "dropped_slots")
+
+
+def engine_for(workflow: str) -> Optional["ServingEngine"]:
+    """The engine serving ``workflow``, or None."""
+    return _ENGINES.get(workflow)
 
 
 class ServingEngine:
@@ -85,6 +103,8 @@ class ServingEngine:
         self._pad_tokens = self.metrics.counter("tf_serve_pad_tokens_total")
         self._decode_steps = self.metrics.counter("tf_serve_decode_steps_total")
         self._graph_replays = self.metrics.counter("tf_serve_decode_graph_replays_total")
+        self._moe = [self.metrics.counter(f"tf_serve_moe_{n}_total") for n in MOE_COUNTS]
+        self._moe_read = [0] * len(MOE_COUNTS)      # the model's sums at the last read
         _ENGINES[workflow] = self
 
     @property
@@ -94,6 +114,12 @@ class ServingEngine:
     @property
     def batches(self) -> int:
         return self._batches.value
+
+    def _moe_sums(self) -> List[int]:
+        """The model's MoE running sums (one device-to-host read), zeros
+        before its first MoE call."""
+        counts = self.model.moe_counts
+        return [0] * len(MOE_COUNTS) if counts is None else counts.tolist()
 
     def deploy(self) -> None:
         self.tf.create_workflow(self.workflow, {"kind": "serving"})
@@ -138,12 +164,17 @@ class ServingEngine:
         B, S = tokens.shape
         real = sum(len(r["prompt"]) for r in requests)
         batch, tracer = self._batch, self.tracer
+        moe = bool(self.cfg.n_experts)
         if batch is not None:
             batch.update(S=S, prompt_tokens=real, pad_tokens=B * S - real)
             span = tracer.begin("serve.prefill", batch["trace"], batch["span"], B=B, S=S,
                                 prompt_tokens=real, pad_tokens=B * S - real)
+            before = self._moe_sums() if moe else None
         logits, cache = self.model.prefill({"tokens": tokens}, max_len=self.max_len)
         if batch is not None:
+            if moe:
+                for name, a, b in zip(MOE_COUNTS, before, self._moe_sums()):
+                    span[f"moe_{name}"] = b - a
             tracer.end(span)
         tok = logits.argmax(-1)[:, None]
         outs = []
@@ -167,6 +198,11 @@ class ServingEngine:
         self._pad_tokens.inc(B * S - real)
         self._decode_steps.inc(self.max_new_tokens)
         self._graph_replays.inc(self.model.decode_graph_replays - replays)
+        if moe:
+            sums = self._moe_sums()
+            for counter, now, last in zip(self._moe, sums, self._moe_read):
+                counter.inc(now - last)
+            self._moe_read = sums
         return [{"id": r["id"], "tokens": generated[i]} for i, r in enumerate(requests)]
 
     def serve(self, ctx, requests: List[Dict[str, Any]]) -> None:

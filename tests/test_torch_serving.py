@@ -239,7 +239,9 @@ def test_engine_counts_requests_batches_and_prompt_tokens():
         "tf_serve_requests_total": 6, "tf_serve_batches_total": 2,
         "tf_serve_prompt_tokens_total": sum(lens),
         "tf_serve_pad_tokens_total": slots - sum(lens),
-        "tf_serve_decode_steps_total": 6, "tf_serve_decode_graph_replays_total": 0}
+        "tf_serve_decode_steps_total": 6, "tf_serve_decode_graph_replays_total": 0,
+        "tf_serve_moe_routed_slots_total": 0, "tf_serve_moe_held_slots_total": 0,
+        "tf_serve_moe_expert_rows_total": 0, "tf_serve_moe_dropped_slots_total": 0}
     assert port._roots == {} and port._batch is None
 
 
@@ -280,6 +282,54 @@ def test_engine_counts_decode_steps_and_graph_replays(arch):
     decodes = [s for s in tracer.collector.spans if s["name"] == "serve.decode"][6:]
     assert [s["graph"] for s in sorted(decodes, key=lambda s: s["ts"])] == \
         [True, False] * 3
+
+
+@pytest.mark.parametrize("capacity_factor", [None, 1.25])
+def test_engine_counts_the_moe_slots_and_the_prefill_span_carries_them(capacity_factor):
+    """deepseek-v2's smoke model (3 layers, the last 2 MoE, top-2) served
+    dropless or at the default capacity: the routed slots are B·k·2 a
+    position (the prefill's S and 3 decode steps), every expert held, the
+    rows at least the slots; dropless drops none.  Each ``serve.prefill``
+    carries its own four counts, and ``engine_for`` finds the engine."""
+    from repro_torch.serving.engine import engine_for
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b", smoke=True), dtype=torch.float32,
+                              capacity_factor=capacity_factor)
+    tracer = Tracer(sample=1.0)
+    port = ServingEngine(cfg, Triggerflow(inline_functions=True, device="cpu"), "srv-moe",
+                         max_batch=3, max_new_tokens=3, max_len=48, tracer=tracer)
+    assert engine_for("srv-moe") is port and engine_for("no-such-workflow") is None
+    prompts = _prompts(seed=9)
+    _serve(port, prompts)
+    c = port.metrics.snapshot()["counters"]
+    prefills = [sp for sp in tracer.collector.spans if sp["name"] == "serve.prefill"]
+    assert len(prefills) == 2
+    routed = sum(sp["B"] * 2 * 2 * (sp["S"] + 3) for sp in prefills)
+    assert c["tf_serve_moe_routed_slots_total"] == c["tf_serve_moe_held_slots_total"] == routed
+    assert sum(sp["moe_routed_slots"] for sp in prefills) == sum(
+        sp["B"] * 2 * 2 * sp["S"] for sp in prefills)
+    for name in ("routed_slots", "held_slots", "expert_rows", "dropped_slots"):
+        assert 0 <= sum(sp[f"moe_{name}"] for sp in prefills) <= c[f"tf_serve_moe_{name}_total"]
+    if capacity_factor is None:
+        assert c["tf_serve_moe_dropped_slots_total"] == 0
+        assert c["tf_serve_moe_expert_rows_total"] >= routed
+    else:
+        # decode's 3 tokens over 8 experts at top-2: one slot an expert
+        assert c["tf_serve_moe_dropped_slots_total"] > 0
+    assert tuple(port.model.moe_counts.tolist()) == tuple(
+        c[f"tf_serve_moe_{n}_total"] for n in ("routed_slots", "held_slots", "expert_rows",
+                                                "dropped_slots"))
+
+
+def test_a_model_without_moe_layers_counts_no_moe_slots():
+    tracer = Tracer(sample=1.0)
+    _, port = _engines(arch="zamba2-1.2b", tracer=tracer)
+    _serve(port, _prompts(seed=10))
+    c = port.metrics.snapshot()["counters"]
+    assert port.batches == 2 and port.model.moe_counts is None
+    assert [c[f"tf_serve_moe_{n}_total"] for n in ("routed_slots", "held_slots",
+                                                   "expert_rows", "dropped_slots")] == [0] * 4
+    assert not any(k.startswith("moe_") for sp in tracer.collector.spans for k in sp)
 
 
 def test_serve_launcher_dumps_the_engines_counters_and_spans(tmp_path, monkeypatch, capsys):
