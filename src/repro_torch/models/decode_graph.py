@@ -1,7 +1,8 @@
 """One decode step held as a CUDA graph and replayed.
 
 Eagerly, a decode step of zamba2 launches over 1,500 small kernels one at
-a time from Python, and the card waits between them.  Here
+a time from Python, and the card waits between them; DeepSeek-V2's, with
+its MoE routing, likewise.  Here
 ``Model.decode_in_place`` (the step with ``pos`` a device tensor and the
 states written in place) is captured once per (B, max_len) into a
 ``torch.cuda.CUDAGraph`` and replayed at every later step: the card runs
@@ -20,12 +21,19 @@ graph's own.
 Where it engages (``replays``), from what the model can observe and with
 no switch: parameters on a CUDA device and not DTensors (the mesh runs the
 eager step), and a family whose step makes no shape from the data and
-reads nothing on the host.  Those are ``dense`` and ``hybrid``, whose
-attention is the dense family's ``gqa_decode``.  The others keep the
-eager step: ``moe`` and ``mla_moe`` because their MoE layers build
-capacity slots from the batch's own routing; ``vlm``, ``audio`` (which the
-engine refuses) and ``xlstm`` because no benchmark cell serves them, so a
-graph of theirs would show no gain where it is measured.
+reads nothing on the host, and which a benchmark cell serves.  Those are
+``dense`` and ``hybrid``, whose attention is the dense family's
+``gqa_decode``, and ``mla_moe``, whose absorbed ``mla_decode`` takes
+``pos`` as a tensor too.  A decode step's MoE routes its T = B tokens into
+slots on the device: the capacity comes from T alone (C = T where
+dropless; the ragged path, which reads the experts' counts on the host,
+is the prefill's), so the step's shapes are fixed by (B, max_len).  The
+MoE's running sums (``Model.moe_counts``) count on in the replayed step;
+the warm-up steps before a capture serve no one, so the sums are put back
+as they were after them.  The others keep the eager step: ``moe``,
+``vlm``, ``audio`` (which the engine refuses) and ``xlstm`` because no
+benchmark cell serves them, so a graph of theirs would show no gain where
+it is measured.
 
 A graph reads the parameters at the addresses they had when it was
 captured; ``Model`` drops its graphs when its parameters are moved, cast
@@ -40,7 +48,7 @@ import torch
 
 from .layers import _is_dtensor
 
-GRAPH_FAMILIES = ("dense", "hybrid")
+GRAPH_FAMILIES = ("dense", "hybrid", "mla_moe")
 MAX_GRAPHS = 4
 # eager steps on a side stream before the capture: what initialises itself
 # lazily (cuBLAS's handles and workspaces, kernels' modules) cannot be captured
@@ -63,6 +71,7 @@ class DecodeGraph:
         self.tokens = torch.zeros_like(tokens)
         self.pos = torch.zeros((), dtype=torch.int64, device=device)
         batch = {"tokens": self.tokens}
+        counts = None if model.moe_counts is None else model.moe_counts.clone()
         with torch.cuda.device(device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
@@ -70,6 +79,12 @@ class DecodeGraph:
                 for _ in range(WARM_UP_STEPS):
                     model.decode_in_place(self.cache, batch, self.pos)
             torch.cuda.current_stream().wait_stream(side)
+            # the warm-up's MoE slots were served to no one; the sums keep
+            # their tensor, whose address the graph will hold
+            if counts is not None:
+                model.moe_counts.copy_(counts)
+            elif model.moe_counts is not None:
+                model.moe_counts.zero_()
             self.graph = torch.cuda.CUDAGraph()
             # the engine decodes on its worker's thread: other threads may
             # use the card meanwhile
@@ -91,7 +106,10 @@ def decode(model, cache: Dict[str, Any], batch: Dict[str, torch.Tensor]):
     """``model.decode`` by its graph for (B, max_len), captured at the
     key's first step; counts captures and replays on the model."""
     tokens, pos = batch["tokens"], cache["pos"]
-    T = cache["k"].shape[2]
+    # the cache's length: its size on the layout's sequence axis
+    name, axes = next((n, a) for n, (_, _, a) in model.cache_layout(1, 1).items()
+                      if "seq_kv" in a)
+    T = cache[name].shape[axes.index("seq_kv")]
     if pos >= T:
         raise ValueError(f"decode position {pos} is past the cache length {T}")
     key = (tokens.shape[0], T)

@@ -92,19 +92,22 @@ def mla_forward(p: MLA, x, positions, nope_dim=128, rope_dim=64, rope_theta=1000
     return out, (ckv, kr[:, :, 0, :])
 
 
-def mla_decode(p: MLA, x, cache_ckv, cache_kr, pos: int, nope_dim=128, rope_dim=64,
+def mla_decode(p: MLA, x, cache_ckv, cache_kr, pos, nope_dim=128, rope_dim=64,
                rope_theta=10000.0, rope_scaling=None):
     """Absorbed decode: x [B,1,D]; cache_ckv [B,T,kvl] and cache_kr
-    [B,T,rope] are written at ``pos`` in place and returned.  The
+    [B,T,rope] are written at ``pos`` in place and returned.  ``pos`` is
+    an int, or a 0-d int64 tensor on the device (a captured step), whose
+    bound its caller checks: here that would read it on the host.  The
     reference's ``dynamic_update_slice`` clamps a ``pos`` past the cache
     onto its last slot; the port raises ``ValueError``, as its
     ``gqa_decode`` does."""
-    if pos >= cache_ckv.shape[1]:
+    static = isinstance(pos, torch.Tensor)
+    if not static and pos >= cache_ckv.shape[1]:
         raise ValueError(f"decode position {pos} is past the cache length "
                          f"{cache_ckv.shape[1]}")
     B = x.shape[0]
     dt = x.dtype
-    positions = torch.full((B, 1), pos, device=x.device)
+    positions = pos.expand(B, 1) if static else torch.full((B, 1), pos, device=x.device)
     cos, sin = rope_angles(positions, rope_dim, rope_theta, rope_scaling)
     qn, qr = _queries(p, x, cos, sin, nope_dim)                     # [B,1,H,*]
     ckv_t, kr_t = _latent(p, x, cos, sin)

@@ -40,9 +40,10 @@ run with it where the parameters require gradients, which the trainer
 turns on (``training.train_step``) and serving leaves off.  ``decode``
 writes the attention K/V into the cache's tensors in place and returns new
 SSM, conv and xLSTM states, so a prefill cache can be decoded from more
-than once.  On a CUDA device the dense and hybrid families' ``decode``
-replays a CUDA graph of the step instead (``models.decode_graph``), which
-copies the cache it is given into its own and leaves that one as it was.
+than once.  On a CUDA device the dense, hybrid and mla_moe families'
+``decode`` replays a CUDA graph of the step instead
+(``models.decode_graph``), which copies the cache it is given into its own
+and leaves that one as it was.
 """
 from __future__ import annotations
 
@@ -683,10 +684,10 @@ class Model(nn.Module):
     def decode(self, cache: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         """One decode step: batch['tokens'] [B,1] (audio: [B,K,1]) →
         (logits [B,V] fp32 (audio: [B,K,V]), cache with ``pos`` advanced).
-        Where ``DG.replays`` holds (the dense and hybrid families on a CUDA
-        device, off a mesh) the step replays a CUDA graph held for (B,
-        max_len) (``models.decode_graph``): the cache it returns holds the
-        graph's own tensors.  Else it runs eagerly (``_decode_eager``)."""
+        Where ``DG.replays`` holds (the dense, hybrid and mla_moe families
+        on a CUDA device, off a mesh) the step replays a CUDA graph held for
+        (B, max_len) (``models.decode_graph``): the cache it returns holds
+        the graph's own tensors.  Else it runs eagerly (``_decode_eager``)."""
         if DG.replays(self):
             return DG.decode(self, cache, batch)
         return self._decode_eager(cache, batch)
@@ -716,33 +717,38 @@ class Model(nn.Module):
             return self._unembed(x)[:, -1], {
                 "C": torch.stack(Cs), "n": torch.stack(ns),
                 "s_h": torch.stack(shs) if shs else cache["s_h"], "pos": pos + 1}
+        logits, states = self._decode_layers(x, cache, pos)
+        return logits, {**cache, **states, "pos": pos + 1}
+
+    @torch.no_grad()
+    def decode_in_place(self, cache: Dict[str, Any], batch: Dict[str, torch.Tensor], pos):
+        """The capture-ready step of every family but xlstm: ``pos`` a 0-d
+        int64 tensor on the cache's device (``cache["pos"]`` is not read),
+        K/V (mla_moe: latent and RoPE key) written at it and the hybrid's
+        SSM and conv states written into ``cache`` in place → logits [B,V]
+        fp32.  It reads nothing on the host and makes no shape from the
+        data, so a CUDA graph can hold it; its arithmetic is the eager
+        step's, op for op."""
+        return self._decode_layers(self._embed(batch), cache, pos)[0]
+
+    def _decode_layers(self, x, cache, pos):
+        """The step of every family but xlstm on the embedded tokens x
+        [B,1,D] → (logits [B,V], the hybrid's new SSM and conv states).
+        ``pos`` an int: the eager step, which stacks the hybrid's new
+        states; a 0-d tensor: ``decode_in_place``, which writes them into
+        ``cache`` and returns none.  The K/V (mla_moe: latent and RoPE key)
+        are written into ``cache`` at ``pos`` either way.  The MoE layers
+        route with no ``pads`` and not ragged, at a capacity set by the
+        token count (C = T where dropless, ``moe.route``), so no shape comes
+        from the data."""
+        cfg = self.cfg
         if cfg.family == "mla_moe":
             for i, lp in enumerate(self._mla_layers()):
                 h, _, _ = MLA.mla_decode(lp.attn, lp.ln1(x), cache["ckv"][i], cache["kr"][i],
                                          pos, cfg.nope_head_dim, cfg.rope_head_dim,
                                          cfg.rope_theta, cfg.rope_scaling)
                 x, _ = self._ffn(lp, x + h)
-            return self._unembed(x)[:, -1], {**cache, "pos": pos + 1}
-        logits, states = self._decode_layers(x, cache, pos)
-        return logits, {**cache, **states, "pos": pos + 1}
-
-    @torch.no_grad()
-    def decode_in_place(self, cache: Dict[str, Any], batch: Dict[str, torch.Tensor], pos):
-        """The capture-ready step of the GQA families and the hybrid: ``pos``
-        a 0-d int64 tensor on the cache's device (``cache["pos"]`` is not
-        read), K/V written at it and the hybrid's SSM and conv states
-        written into ``cache`` in place → logits [B,V] fp32.  It reads
-        nothing on the host and makes no shape from the data, so a CUDA
-        graph can hold it; its arithmetic is the eager step's, op for op."""
-        return self._decode_layers(self._embed(batch), cache, pos)[0]
-
-    def _decode_layers(self, x, cache, pos):
-        """The GQA families' and the hybrid's step on the embedded tokens x
-        [B,1,D] → (logits [B,V], the hybrid's new SSM and conv states).
-        ``pos`` an int: the eager step, which stacks the hybrid's new
-        states; a 0-d tensor: ``decode_in_place``, which writes them into
-        ``cache`` and returns none."""
-        cfg = self.cfg
+            return self._unembed(x)[:, -1], {}
         static = isinstance(pos, torch.Tensor)
         B = x.shape[0]
         posb = pos.expand(B, 1) if static else torch.full((B, 1), pos, device=x.device)

@@ -695,27 +695,45 @@ def _greedy(model, decode, tokens, max_len, steps):
     return torch.cat(outs, 1), torch.stack(seen)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3.2-3b"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3.2-3b", "deepseek-v2-236b"])
 def test_decode_graph_replays_the_eager_step(cuda, arch):
-    """The smoke model in bf16: greedy decode by the replayed graph gives
-    the eager step's tokens and logits bit for bit over 32 steps, capturing
-    one graph for its (B, max_len) and replaying it at every step, the
-    prefill's cache left as it was; a second (B, max_len) captures a second
-    graph, and the first key again replays the first."""
+    """The smoke model in bf16 (deepseek-v2 with its published head dims
+    and every published option: group-limited ×16 unnormalised, dropless, a
+    held share, YaRN, left pads unrouted): greedy decode by the replayed
+    graph gives the eager step's tokens and logits bit for bit over 32
+    steps, capturing one graph for its (B, max_len) and replaying it at
+    every step, the prefill's cache left as it was, and adds to the MoE's
+    running sums what the eager steps add (the warm-up before a capture
+    adds nothing); a second (B, max_len) captures a second graph, and the
+    first key again replays the first."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model, decode_graph
+    from repro_torch.models.layers import YaRN
 
     cfg = get_config(arch, smoke=True)
+    if cfg.family == "mla_moe":
+        cfg = dataclasses.replace(
+            cfg, head_dim=192, nope_head_dim=128, rope_head_dim=64, v_head_dim=128,
+            n_group=4, topk_group=2, norm_topk_prob=False, routed_scaling_factor=16.0,
+            capacity_factor=None, experts_held=(2, 4), unrouted_pad=0,
+            rope_scaling=YaRN(factor=40, original_max_position_embeddings=4096,
+                              mscale=0.707, mscale_all_dim=0.707))
     assert cfg.dtype == torch.bfloat16
     model = Model(cfg, device="cuda", seed=0)
     assert decode_graph.replays(model)
     g = torch.Generator(device="cuda").manual_seed(3)
     tokens = torch.randint(1, cfg.vocab, (4, 24), generator=g, device="cuda")
-    want, want_logits = _greedy(model, model._decode_eager, tokens, 64, 32)
+    if cfg.unrouted_pad is not None:
+        tokens[0, :5] = cfg.unrouted_pad                # left pads
+    want, want_logits = _greedy(model, torch.no_grad()(model._decode_eager), tokens, 64, 32)
+    # the MoE's running sums after one prefill and the eager steps
+    sums = None if model.moe_counts is None else model.moe_counts.clone()
     assert model.decode_graph_captures == model.decode_graph_replays == 0
     got, got_logits = _greedy(model, model.decode, tokens, 64, 32)
     assert (model.decode_graph_captures, model.decode_graph_replays) == (1, 32)
     assert torch.equal(got, want) and torch.equal(got_logits, want_logits)
+    if sums is not None:
+        assert torch.equal(model.moe_counts, 2 * sums)
 
     logits, cache = model.prefill({"tokens": tokens}, max_len=64)
     kept = {k: v.clone() for k, v in cache.items() if k != "pos"}
