@@ -1,13 +1,13 @@
 """One decode step held as a CUDA graph and replayed.
 
-Eagerly, a decode step of zamba2 launches over 1,500 small kernels one at
+Op by op, a decode step of zamba2 launches over 1,500 small kernels one at
 a time from Python, and the card waits between them; DeepSeek-V2's, with
-its MoE routing, likewise.  Here
-``Model.decode_in_place`` (the step with ``pos`` a device tensor and the
-states written in place) is captured once per (B, max_len) into a
-``torch.cuda.CUDAGraph`` and replayed at every later step: the card runs
-the whole step back to back, and the host makes one graph launch a step,
-after copying in the tokens and filling ``pos``.
+its MoE routing, likewise.  Here ``Model.decode_in_place``, the model's
+one step, is captured with ``pos`` a 0-d device tensor, once per
+(B, max_len), into a ``torch.cuda.CUDAGraph`` and replayed at every later
+step: the card runs the whole step back to back, and the host makes one
+graph launch a step, after copying in the tokens and filling ``pos``.
+``Model.decode`` checks ``pos`` against the cache before it comes here.
 
 A ``DecodeGraph`` holds static buffers: the tokens [B,1], ``pos`` (0-d
 int64), a cache of the model's layout and the logits [B,V] its capture
@@ -20,20 +20,20 @@ graph's own.
 
 Where it engages (``replays``), from what the model can observe and with
 no switch: parameters on a CUDA device and not DTensors (the mesh runs the
-eager step), and a family whose step makes no shape from the data and
-reads nothing on the host, and which a benchmark cell serves.  Those are
-``dense`` and ``hybrid``, whose attention is the dense family's
-``gqa_decode``, and ``mla_moe``, whose absorbed ``mla_decode`` takes
-``pos`` as a tensor too.  A decode step's MoE routes its T = B tokens into
-slots on the device: the capacity comes from T alone (C = T where
-dropless; the ragged path, which reads the experts' counts on the host,
-is the prefill's), so the step's shapes are fixed by (B, max_len).  The
-MoE's running sums (``Model.moe_counts``) count on in the replayed step;
-the warm-up steps before a capture serve no one, so the sums are put back
-as they were after them.  The others keep the eager step: ``moe``,
-``vlm``, ``audio`` (which the engine refuses) and ``xlstm`` because no
-benchmark cell serves them, so a graph of theirs would show no gain where
-it is measured.
+step op by op), and a family in ``GRAPH_FAMILIES``.  Every family's step
+makes no shape from the data and reads nothing on the host at a tensor
+``pos``; the list holds those a benchmark cell serves: ``dense`` and
+``hybrid``, whose attention is the dense family's ``gqa_decode``, and
+``mla_moe``, whose attention is the absorbed ``mla_decode``.  A decode
+step's MoE routes its T = B tokens into slots on the device: the capacity
+comes from T alone (C = T where dropless; the ragged path, which reads the
+experts' counts on the host, is the prefill's), so the step's shapes are
+fixed by (B, max_len).  The MoE's running sums (``Model.moe_counts``)
+count on in the replayed step; the warm-up steps before a capture serve no
+one, so the sums are put back as they were after them.  The others
+(``moe``, ``vlm``, ``audio``, which the engine refuses, and ``xlstm``) run
+the step op by op, since no benchmark cell serves them and a graph of
+theirs would show no gain where it is measured.
 
 A graph reads the parameters at the addresses they had when it was
 captured; ``Model`` drops its graphs when its parameters are moved, cast
@@ -50,7 +50,7 @@ from .layers import _is_dtensor
 
 GRAPH_FAMILIES = ("dense", "hybrid", "mla_moe")
 MAX_GRAPHS = 4
-# eager steps on a side stream before the capture: what initialises itself
+# steps on a side stream before the capture: what initialises itself
 # lazily (cuBLAS's handles and workspaces, kernels' modules) cannot be captured
 WARM_UP_STEPS = 1
 
@@ -103,16 +103,11 @@ class DecodeGraph:
 
 
 def decode(model, cache: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-    """``model.decode`` by its graph for (B, max_len), captured at the
-    key's first step; counts captures and replays on the model."""
+    """``model.decode`` by its graph for the cache's shapes, (B, max_len),
+    captured at the key's first step; counts captures and replays on the
+    model.  ``model.decode`` has checked ``pos`` against the cache."""
     tokens, pos = batch["tokens"], cache["pos"]
-    # the cache's length: its size on the layout's sequence axis
-    name, axes = next((n, a) for n, (_, _, a) in model.cache_layout(1, 1).items()
-                      if "seq_kv" in a)
-    T = cache[name].shape[axes.index("seq_kv")]
-    if pos >= T:
-        raise ValueError(f"decode position {pos} is past the cache length {T}")
-    key = (tokens.shape[0], T)
+    key = tuple(tuple(v.shape) for k, v in cache.items() if k != "pos")
     graph = model._decode_graphs.get(key)
     if graph is None:
         if len(model._decode_graphs) >= MAX_GRAPHS:

@@ -101,13 +101,12 @@ def mla_decode(p: MLA, x, cache_ckv, cache_kr, pos, nope_dim=128, rope_dim=64,
     reference's ``dynamic_update_slice`` clamps a ``pos`` past the cache
     onto its last slot; the port raises ``ValueError``, as its
     ``gqa_decode`` does."""
-    static = isinstance(pos, torch.Tensor)
-    if not static and pos >= cache_ckv.shape[1]:
+    if isinstance(pos, int) and pos >= cache_ckv.shape[1]:
         raise ValueError(f"decode position {pos} is past the cache length "
                          f"{cache_ckv.shape[1]}")
     B = x.shape[0]
     dt = x.dtype
-    positions = pos.expand(B, 1) if static else torch.full((B, 1), pos, device=x.device)
+    positions = torch.as_tensor(pos, device=x.device).expand(B, 1)
     cos, sin = rope_angles(positions, rope_dim, rope_theta, rope_scaling)
     qn, qr = _queries(p, x, cos, sin, nope_dim)                     # [B,1,H,*]
     ckv_t, kr_t = _latent(p, x, cos, sin)

@@ -37,13 +37,15 @@ Weights are drawn on ``device`` from a ``torch.Generator`` seeded with
 ``seed``; they are bf16 whatever ``cfg.dtype`` is, as in the reference.
 ``prefill`` and ``decode`` run without autograd; ``forward`` and ``loss``
 run with it where the parameters require gradients, which the trainer
-turns on (``training.train_step``) and serving leaves off.  ``decode``
-writes the attention K/V into the cache's tensors in place and returns new
-SSM, conv and xLSTM states, so a prefill cache can be decoded from more
-than once.  On a CUDA device the dense, hybrid and mla_moe families'
-``decode`` replays a CUDA graph of the step instead
-(``models.decode_graph``), which copies the cache it is given into its own
-and leaves that one as it was.
+turns on (``training.train_step``) and serving leaves off.  Every family
+has one decode step, ``decode_in_place``, which writes K/V and every
+recurrent state into the cache it is given.  ``decode`` runs it op by op
+on the caller's cache with the recurrent states cloned, so the K/V land
+in the caller's tensors, the SSM, conv and xLSTM states come back new and
+a prefill cache can be decoded from more than once; on a CUDA device the
+dense, hybrid and mla_moe families' ``decode`` replays a CUDA graph of it
+instead (``models.decode_graph``), which copies the cache it is given
+into its own and leaves that one as it was.
 """
 from __future__ import annotations
 
@@ -378,9 +380,9 @@ class Model(nn.Module):
             self.shared_proj = nn.ParameterList(
                 make_param(gen, (2 * d, d), ("embed", "embed2"), (2 * d) ** -0.5, device=device)
                 for _ in cfg.shared_sites())
-        # decode's CUDA graphs by (B, max_len), made at their first step
+        # decode's CUDA graphs by the cache's shapes, made at their first step
         # (``models.decode_graph``), and how many were captured and replayed
-        self._decode_graphs: Dict[Tuple[int, int], DG.DecodeGraph] = {}
+        self._decode_graphs: Dict[tuple, DG.DecodeGraph] = {}
         self.decode_graph_captures = 0
         self.decode_graph_replays = 0
         # the MoE layers' running sums (``moe.moe_forward``'s ``counts``):
@@ -684,74 +686,63 @@ class Model(nn.Module):
     def decode(self, cache: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         """One decode step: batch['tokens'] [B,1] (audio: [B,K,1]) →
         (logits [B,V] fp32 (audio: [B,K,V]), cache with ``pos`` advanced).
-        Where ``DG.replays`` holds (the dense, hybrid and mla_moe families
-        on a CUDA device, off a mesh) the step replays a CUDA graph held for
-        (B, max_len) (``models.decode_graph``): the cache it returns holds
-        the graph's own tensors.  Else it runs eagerly (``_decode_eager``)."""
+        A ``pos`` past the cache's length on its ``seq_kv`` axis raises
+        ``ValueError`` before anything is written.  Where ``DG.replays``
+        holds, a CUDA graph of ``decode_in_place`` replays
+        (``models.decode_graph``) and the cache returned holds the graph's
+        tensors; else ``decode_in_place`` runs op by op on the caller's
+        cache with its recurrent states (no ``seq_kv`` axis) cloned."""
+        pos = cache["pos"]
+        layout = self.cache_layout(1, 1)
+        for name, (_, _, axes) in layout.items():
+            if "seq_kv" in axes:
+                T = cache[name].shape[axes.index("seq_kv")]
+                if pos >= T:
+                    raise ValueError(f"decode position {pos} is past the cache length {T}")
+                break
         if DG.replays(self):
             return DG.decode(self, cache, batch)
-        return self._decode_eager(cache, batch)
-
-    def _decode_eager(self, cache: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-        """The step op by op, ``pos`` a Python int.  The cache's K/V
-        (latent) tensors are updated in place; the hybrid's SSM and conv
-        states and xlstm's states come back as new tensors."""
-        cfg = self.cfg
-        pos = cache["pos"]
-        x = self._embed(batch)
-        if cfg.family == "xlstm":
-            Cs, ns, shs = [], [], []
-            for lp in self.layers:
-                h = lp.norm(x)
-                if lp.slstm is not None:
-                    out, st = XL.slstm_decode(lp.slstm, h, tuple(cache["s_h"][len(shs)]),
-                                              cfg.n_heads)
-                    shs.append(torch.stack(st))
-                else:
-                    out, (C, n) = XL.mlstm_decode(lp.mlstm, h, (cache["C"][len(Cs)],
-                                                                cache["n"][len(Cs)]),
-                                                  cfg.n_heads)
-                    Cs.append(C)
-                    ns.append(n)
-                x = x + out
-            return self._unembed(x)[:, -1], {
-                "C": torch.stack(Cs), "n": torch.stack(ns),
-                "s_h": torch.stack(shs) if shs else cache["s_h"], "pos": pos + 1}
-        logits, states = self._decode_layers(x, cache, pos)
-        return logits, {**cache, **states, "pos": pos + 1}
+        work = {**cache, **{name: cache[name].clone()
+                            for name, (_, _, axes) in layout.items() if "seq_kv" not in axes}}
+        return self.decode_in_place(work, batch, pos), {**work, "pos": pos + 1}
 
     @torch.no_grad()
     def decode_in_place(self, cache: Dict[str, Any], batch: Dict[str, torch.Tensor], pos):
-        """The capture-ready step of every family but xlstm: ``pos`` a 0-d
-        int64 tensor on the cache's device (``cache["pos"]`` is not read),
-        K/V (mla_moe: latent and RoPE key) written at it and the hybrid's
-        SSM and conv states written into ``cache`` in place → logits [B,V]
-        fp32.  It reads nothing on the host and makes no shape from the
-        data, so a CUDA graph can hold it; its arithmetic is the eager
-        step's, op for op."""
-        return self._decode_layers(self._embed(batch), cache, pos)[0]
-
-    def _decode_layers(self, x, cache, pos):
-        """The step of every family but xlstm on the embedded tokens x
-        [B,1,D] → (logits [B,V], the hybrid's new SSM and conv states).
-        ``pos`` an int: the eager step, which stacks the hybrid's new
-        states; a 0-d tensor: ``decode_in_place``, which writes them into
-        ``cache`` and returns none.  The K/V (mla_moe: latent and RoPE key)
-        are written into ``cache`` at ``pos`` either way.  The MoE layers
-        route with no ``pads`` and not ragged, at a capacity set by the
-        token count (C = T where dropless, ``moe.route``), so no shape comes
-        from the data."""
+        """The step of every family: ``pos`` an int, or a 0-d int64 tensor
+        on the cache's device, whose bound ``decode`` checks (``cache["pos"]``
+        is not read).  Writes K/V (mla_moe: latent and RoPE key) at ``pos``
+        and every recurrent state (the hybrid's SSM and conv, xlstm's C, n
+        and s_h) into ``cache`` in place → logits [B,V] fp32.  At a tensor
+        ``pos`` it reads nothing on the host and makes no shape from the
+        data (the MoE routes unpadded, not ragged, at a capacity set by the
+        token count), so a CUDA graph can hold it."""
         cfg = self.cfg
+        x = self._embed(batch)
+        if cfg.family == "xlstm":
+            mi = si = 0
+            for lp in self.layers:
+                h = lp.norm(x)
+                if lp.slstm is not None:
+                    out, st = XL.slstm_decode(lp.slstm, h, tuple(cache["s_h"][si]), cfg.n_heads)
+                    cache["s_h"][si].copy_(torch.stack(st))
+                    si += 1
+                else:
+                    out, (C, n) = XL.mlstm_decode(lp.mlstm, h, (cache["C"][mi], cache["n"][mi]),
+                                                  cfg.n_heads)
+                    cache["C"][mi].copy_(C)
+                    cache["n"][mi].copy_(n)
+                    mi += 1
+                x = x + out
+            return self._unembed(x)[:, -1]
         if cfg.family == "mla_moe":
             for i, lp in enumerate(self._mla_layers()):
                 h, _, _ = MLA.mla_decode(lp.attn, lp.ln1(x), cache["ckv"][i], cache["kr"][i],
                                          pos, cfg.nope_head_dim, cfg.rope_head_dim,
                                          cfg.rope_theta, cfg.rope_scaling)
                 x, _ = self._ffn(lp, x + h)
-            return self._unembed(x)[:, -1], {}
-        static = isinstance(pos, torch.Tensor)
+            return self._unembed(x)[:, -1]
         B = x.shape[0]
-        posb = pos.expand(B, 1) if static else torch.full((B, 1), pos, device=x.device)
+        posb = torch.as_tensor(pos, device=x.device).expand(B, 1)
         if cfg.family == "vlm":
             cos, sin = L.mrope_angles(posb[..., None].expand(B, 1, 3), cfg.head_dim,
                                       cfg.mrope_sections, cfg.rope_theta)
@@ -760,19 +751,14 @@ class Model(nn.Module):
         if cfg.family in GQA_FAMILIES:
             for i, lp in enumerate(self.layers):
                 x = self._decode_block(lp, x, cache["k"][i], cache["v"][i], pos, cos, sin)
-            return self._unembed(x)[:, -1], {}
+            return self._unembed(x)[:, -1]
         x0 = x
         sites = cfg.shared_sites()
-        ssm, conv = [], []
         for i, lp in enumerate(self.layers):
             if i in sites:
                 site = sites.index(i)
                 x = x + self._decode_block(self.shared_attn, self._site_input(site, x, x0),
                                            cache["k"][site], cache["v"][site], pos, cos, sin)
-            out, s, cc = SSM.mamba2_decode(lp.mamba, lp.norm(x), cache["ssm"][i],
-                                           cache["conv"][i], inplace=static)
-            x = x + out
-            ssm.append(s)
-            conv.append(cc)
-        states = {} if static else {"ssm": torch.stack(ssm), "conv": torch.stack(conv)}
-        return self._unembed(x)[:, -1], states
+            x = x + SSM.mamba2_decode(lp.mamba, lp.norm(x), cache["ssm"][i],
+                                      cache["conv"][i])[0]
+        return self._unembed(x)[:, -1]

@@ -97,16 +97,13 @@ def mamba2_forward(p: Mamba2, x, chunk: int = 128, return_state: bool = False,
     return out
 
 
-def mamba2_decode(p: Mamba2, x, state, conv_cache, inplace: bool = False):
-    """Single-step recurrence.  x [B,1,D]; state [B,H,N,P]; conv_cache
-    [B,W-1,Di] holds the previous pre-conv x-branch inputs.  Returns (out
-    [B,1,D], new state, new conv cache); the inputs are left as they were.
-    With ``inplace`` the new state and conv cache are written into
-    ``state`` (fp32, as ``Model.cache_layout`` holds it) and ``conv_cache``
-    and returned: the same ops in the same order and dtypes, so the same
-    values, with no new state (the form a captured decode step runs,
-    ``models.decode_graph``)."""
-    f32 = torch.float32
+def mamba2_decode(p: Mamba2, x, state, conv_cache):
+    """Single-step recurrence.  x [B,1,D]; state [B,H,N,P] fp32 (as
+    ``Model.cache_layout`` holds it); conv_cache [B,W-1,Di] holds the
+    previous pre-conv x-branch inputs.  Writes the new state into ``state``
+    and the new conv cache into ``conv_cache``, in place, and returns (out
+    [B,1,D], state, conv_cache): no new state is made, so a captured decode
+    step can hold it (``models.decode_graph``)."""
     dtype = x.dtype
     z = torch.einsum("bsd,df->bsf", x, p.wz.to(dtype))[:, 0]
     raw = torch.einsum("bsd,df->bsf", x, p.wx.to(dtype))[:, 0]         # [B,Di]
@@ -119,14 +116,12 @@ def mamba2_decode(p: Mamba2, x, state, conv_cache, inplace: bool = False):
     H = a.shape[0]
     xh = xb.reshape(xb.shape[0], H, -1).float()
     decay = torch.exp(dt * a)[:, :, None, None]
-    state = state.mul_(decay) if inplace else decay * state.to(f32)
+    state.mul_(decay)
     inflow = einsum("bn,bhp->bhnp", B_, dt[:, :, None] * xh)
-    state = state.add_(inflow) if inplace else state + inflow
+    state.add_(inflow)
     y = einsum("bn,bhnp->bhp", C_, state)
     y = y + xh * p.d_skip.float()[None, :, None]
     y = y.reshape(xb.shape).to(dtype)
     y = rms_norm(y, p.out_norm.w, p.out_norm.eps) * F.silu(z)
     out = torch.einsum("bf,fd->bd", y, p.wo.to(dtype))[:, None, :]
-    if inplace:
-        return out, state, conv_cache.copy_(window[:, 1:, :])
-    return out, state, window[:, 1:, :]
+    return out, state, conv_cache.copy_(window[:, 1:, :])

@@ -695,15 +695,24 @@ def _greedy(model, decode, tokens, max_len, steps):
     return torch.cat(outs, 1), torch.stack(seen)
 
 
+def _op_by_op(model):
+    """``Model.decode``'s op-by-op route on the card: ``decode_in_place``
+    run outside a graph, at an int ``pos``, on a clone of the cache."""
+    def decode(cache, batch):
+        work = {k: v.clone() for k, v in cache.items() if k != "pos"}
+        return model.decode_in_place(work, batch, cache["pos"]), {**work, "pos": cache["pos"] + 1}
+    return decode
+
+
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3.2-3b", "deepseek-v2-236b"])
 def test_decode_graph_replays_the_eager_step(cuda, arch):
     """The smoke model in bf16 (deepseek-v2 with its published head dims
     and every published option: group-limited ×16 unnormalised, dropless, a
     held share, YaRN, left pads unrouted): greedy decode by the replayed
-    graph gives the eager step's tokens and logits bit for bit over 32
-    steps, capturing one graph for its (B, max_len) and replaying it at
-    every step, the prefill's cache left as it was, and adds to the MoE's
-    running sums what the eager steps add (the warm-up before a capture
+    graph gives the step run op by op its tokens and logits bit for bit
+    over 32 steps, capturing one graph for its (B, max_len) and replaying it
+    at every step, the prefill's cache left as it was, and adds to the MoE's
+    running sums what the op-by-op steps add (the warm-up before a capture
     adds nothing); a second (B, max_len) captures a second graph, and the
     first key again replays the first."""
     from repro_torch.configs import get_config
@@ -725,8 +734,8 @@ def test_decode_graph_replays_the_eager_step(cuda, arch):
     tokens = torch.randint(1, cfg.vocab, (4, 24), generator=g, device="cuda")
     if cfg.unrouted_pad is not None:
         tokens[0, :5] = cfg.unrouted_pad                # left pads
-    want, want_logits = _greedy(model, torch.no_grad()(model._decode_eager), tokens, 64, 32)
-    # the MoE's running sums after one prefill and the eager steps
+    want, want_logits = _greedy(model, _op_by_op(model), tokens, 64, 32)
+    # the MoE's running sums after one prefill and the op-by-op steps
     sums = None if model.moe_counts is None else model.moe_counts.clone()
     assert model.decode_graph_captures == model.decode_graph_replays == 0
     got, got_logits = _greedy(model, model.decode, tokens, 64, 32)
@@ -742,7 +751,7 @@ def test_decode_graph_replays_the_eager_step(cuda, arch):
     again, _ = model.decode(cache, {"tokens": logits.argmax(-1)[:, None]})
     assert torch.equal(first, again) and torch.equal(first, want_logits[0])
 
-    small, small_logits = _greedy(model, model._decode_eager, tokens[:2], 40, 8)
+    small, small_logits = _greedy(model, _op_by_op(model), tokens[:2], 40, 8)
     got, got_logits = _greedy(model, model.decode, tokens[:2], 40, 8)
     assert (model.decode_graph_captures, model.decode_graph_replays) == (2, 42)
     assert torch.equal(got, small) and torch.equal(got_logits, small_logits)
@@ -755,8 +764,8 @@ def test_decode_graph_replays_the_eager_step(cuda, arch):
 
 def test_decode_on_the_card_mesh_stays_eager(card_mesh):
     """zamba2's smoke model in fp32 on the (1,) mesh: ``decode`` runs the
-    eager step (its parameters are DTensors), captures nothing, and agrees
-    with the meshless eager step within 1e-4·(1 + max|want|)."""
+    step op by op (its parameters are DTensors), captures nothing, and
+    agrees with the meshless op-by-op step within 1e-4·(1 + max|want|)."""
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.configs import get_config
@@ -769,7 +778,7 @@ def test_decode_on_the_card_mesh_stays_eager(card_mesh):
     tokens = torch.randint(1, cfg.vocab, (4, 16), generator=g, device="cuda")
     nxt = {"tokens": tokens[:, -1:]}
     _, cache = model.prefill({"tokens": tokens}, max_len=32)
-    want, _ = model._decode_eager(cache, nxt)
+    want, _ = _op_by_op(model)(cache, nxt)
     r = Resolver(cfg, card_mesh)
     distribute_model(model, r)
     assert not decode_graph.replays(model)

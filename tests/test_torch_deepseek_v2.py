@@ -341,43 +341,42 @@ def test_the_model_finds_each_rows_leading_pads():
 
 
 # ---------------------------------------------------------------- decode ----
-def test_decode_in_place_matches_the_eager_step():
-    """The capture-ready step (``Model.decode_in_place``: ``pos`` a 0-d
-    int64 tensor, the latent and RoPE key written into its own cache) with
-    every published option on, run eagerly for 8 steps after a prefill, the
-    last at ``max_len - 1``, against the int-``pos`` step of a twin model:
-    the same greedy tokens, logits, ``ckv``/``kr`` and MoE running sums,
-    bit for bit."""
+def test_decode_at_a_device_position_matches_decode():
+    """The step at a tensor ``pos`` (``Model.decode_in_place`` with a 0-d
+    int64 ``pos``, as the decode graph captures it) with every published
+    option on, on its own cache, for 8 steps after a prefill, the last at
+    ``max_len - 1``, against ``Model.decode`` (an int ``pos``) of a twin
+    model: the same greedy tokens, logits, ``ckv``/``kr`` and MoE running
+    sums, bit for bit."""
     cfg = dataclasses.replace(
         get_config("deepseek-v2-236b", smoke=True), dtype=torch.float32, n_group=4,
         topk_group=2, norm_topk_prob=False, routed_scaling_factor=16.0, capacity_factor=None,
         experts_held=(2, 4), rope_scaling=DEEPSEEK_YARN, unrouted_pad=0)
-    graphed, eager = (Model(cfg, device="cpu", seed=3) for _ in range(2))
+    model, twin = (Model(cfg, device="cpu", seed=3) for _ in range(2))
     B, S, steps = 2, 12, 8
     max_len = S + steps
     tokens = torch.randint(1, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(5))
     tokens[0, :4] = 0                                   # left pads, unrouted
-    logits, static = graphed.prefill({"tokens": tokens}, max_len=max_len)
-    want_logits, cache = eager.prefill({"tokens": tokens}, max_len=max_len)
+    logits, static = model.prefill({"tokens": tokens}, max_len=max_len)
+    want_logits, cache = twin.prefill({"tokens": tokens}, max_len=max_len)
     assert torch.equal(logits, want_logits)
-    assert torch.equal(graphed.moe_counts, eager.moe_counts)
-    prefilled = eager.moe_counts.clone()
+    assert torch.equal(model.moe_counts, twin.moe_counts)
+    prefilled = twin.moe_counts.clone()
     del static["pos"]
     pos = torch.zeros((), dtype=torch.int64)
     tok = logits.argmax(-1)[:, None]
     for k in range(steps):
         pos.fill_(S + k)
-        got = graphed.decode_in_place(static, {"tokens": tok}, pos)
-        with torch.no_grad():                           # as ``decode`` runs it
-            want, cache = eager._decode_eager(cache, {"tokens": tok})
+        got = model.decode_in_place(static, {"tokens": tok}, pos)
+        want, cache = twin.decode(cache, {"tokens": tok})
         assert torch.equal(got, want)
         for key, v in static.items():
             assert torch.equal(v, cache[key]), key
         tok = want.argmax(-1)[:, None]
     assert int(pos) == max_len - 1 and cache["pos"] == max_len
-    assert torch.equal(graphed.moe_counts, eager.moe_counts)
+    assert torch.equal(model.moe_counts, twin.moe_counts)
     # every decoded token routed its top k in each MoE layer
-    routed = eager.moe_counts[0] - prefilled[0]
+    routed = twin.moe_counts[0] - prefilled[0]
     assert routed == steps * B * cfg.top_k * (cfg.n_layers - 1)
 
 

@@ -321,6 +321,26 @@ def test_routing_matches_reference_in_prefill_and_decode(arch, monkeypatch):
         assert sum(d.size for _, d in got_dec) > 0     # decode drops, as in the reference
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "zamba2-1.2b", "deepseek-v2-236b"])
+def test_model_decode_past_the_cache_raises(arch):
+    """``Model.decode`` at ``pos == max_len`` (a dense, a hybrid and an
+    mla_moe smoke model) raises ValueError before it writes anything:
+    every tensor of the cache is left as it was.  One step earlier it
+    decodes."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
+    model = Model(cfg, device="cpu", seed=1)
+    tokens = torch.randint(1, cfg.vocab, (2, 6), generator=torch.Generator().manual_seed(2))
+    logits, cache = model.prefill({"tokens": tokens}, max_len=8)
+    tok = logits.argmax(-1)[:, None]
+    _, cache = model.decode({**cache, "pos": 7}, {"tokens": tok})
+    kept = {k: v.clone() for k, v in cache.items() if k != "pos"}
+    assert cache["pos"] == 8
+    with pytest.raises(ValueError, match="decode position 8 is past the cache length 8"):
+        model.decode(cache, {"tokens": tok})
+    for k, v in kept.items():
+        assert torch.equal(cache[k], v), k
+
+
 def test_other_families_raise():
     """Every family of ARCHS is ported: each smoke config builds, with the
     parameters its param_count counts, and a family outside them raises."""

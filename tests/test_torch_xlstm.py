@@ -185,6 +185,28 @@ def test_xlstm_model_matches_reference():
         assert np.abs(logits - last).max() < 1e-2 * (1 + np.abs(last).max())
 
 
+def test_decode_in_place_writes_the_states_decode_returns():
+    """xlstm's one step writes into the cache it is given what ``decode``
+    returns: after a prefill, ``decode_in_place`` on a clone of the cache
+    gives ``decode``'s logits and its new C, n and s_h bit for bit, in the
+    clone's own tensors, and leaves the prefill's cache as it was."""
+    cfg = dataclasses.replace(get_config(ARCH, smoke=True), dtype=torch.float32)
+    model = Model(cfg, device="cpu", seed=1)
+    tokens = torch.randint(1, cfg.vocab, (2, 9), generator=torch.Generator().manual_seed(3))
+    _, cache = model.prefill({"tokens": tokens[:, :-1]})
+    kept = {k: v.clone() for k, v in cache.items() if k != "pos"}
+    nxt = {"tokens": tokens[:, -1:]}
+    want, new = model.decode(cache, nxt)
+    assert new["pos"] == cache["pos"] + 1
+    work = {k: v.clone() for k, v in kept.items()}
+    tensors = dict(work)
+    got = model.decode_in_place(work, nxt, cache["pos"])
+    assert torch.equal(got, want)
+    for k, v in work.items():
+        assert v is tensors[k] and torch.equal(v, new[k]), k
+        assert not torch.equal(v, kept[k]) and torch.equal(cache[k], kept[k]), k
+
+
 def test_xlstm_params_round_trip_through_the_reference_layout():
     """params_to_jax gives the reference's tree (unstacked l{i}, the same
     shapes), and params_from_jax takes it back to the same state."""
