@@ -66,7 +66,14 @@ decode ms a token and the device's busy share:
              state between chunks dropped), with the activations in fp32:
              in bf16 rounding alone moves the logits of this 38-layer
              random-weight model by O(1).  These fp32 forwards take the
-             scalar routes of K2 and K3;
+             scalar routes of K2 and K3.  The decode step's state update
+             (csrc/ssd_step.cu): launched once a Mamba2 layer in the
+             graph's warm-up and capture, and run in every layer of every
+             profiled replayed step; then 16 decode steps of the first
+             batch op by op, the kernel against its plain version at every
+             layer-step's own inputs, where the step without its inflow
+             B (dt x) must fail the same check; both timed at the chat and
+             longprompt cells' shapes (B 64 and 8, H 64, N = P = 64);
 8. shards    the Table-1 join through a ProcessShardPool of 4 shard
              processes over 8 partitions of a FilePartitionedEventStore
              (the pool's defaults: batches of 512, every_batch, fsync), on
@@ -173,8 +180,8 @@ decode ms a token and the device's busy share:
              visible; the group is destroyed before the phase returns.
 
 Each kernel's launch count is set to 0 just before the path that should
-launch it (phases 5, 6 and 7, and the fp32 forwards of 7 for the scalar
-kernels of K2 and K3; in phases 8-10, K1's count in the shard processes;
+launch it (phases 5, 6 and 7, the fp32 forwards of 7 for the scalar
+kernels of K2 and K3 and its op-by-op decode steps for ssd_step; in phases 8-10, K1's count in the shard processes;
 each serving run, model-level run and fp32 check of phases 12-15; the
 xlstm run of 16; the 5 train steps and the orchestrated runs of 17; the
 mesh's train steps, each zamba2 loss and each family's forward and backward
@@ -229,7 +236,8 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 # the model's kernels by the names of their device functions
 KERNEL_NAMES = {"k2_sm90": "flash_fwd_sm90", "k2_scalar": "flash_fwd<",
-                "k3_sm90": "ssd_sm90_", "k3_scalar": "ssd_fwd<"}
+                "k3_sm90": "ssd_sm90_", "k3_scalar": "ssd_fwd<",
+                "ssd_step": "ssd_step_kernel"}
 
 
 def device_profile(fn, iters: int, top: int = 0, attempts: int = 3) -> dict:
@@ -240,7 +248,8 @@ def device_profile(fn, iters: int, top: int = 0, attempts: int = 3) -> dict:
     device activity at all; such a session is run again, up to ``attempts``
     sessions in all (``sessions`` says how many it took).  ``device_ms`` is
     None where none of them saw device activity; wall_ms - device_ms is the
-    device's idle time on one stream."""
+    device's idle time on one stream.  ``kernel_calls``: how many times each
+    of the model's kernels ran a call, graph replays' included."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -265,6 +274,8 @@ def device_profile(fn, iters: int, top: int = 0, attempts: int = 3) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     out["kernel_ms"] = {k: sum(us for name, us in by_name.items() if pat in name) / 1e3 / iters
                         for k, pat in KERNEL_NAMES.items()}
+    out["kernel_calls"] = {k: sum(pat in e.name for e in events) / iters
+                           for k, pat in KERNEL_NAMES.items()}
     if top:
         out["top_ms"] = [[name[:80], us / 1e3 / iters] for name, us in
                          sorted(by_name.items(), key=lambda kv: -kv[1])[:top]]
@@ -1036,6 +1047,69 @@ def _ssd_without_carry(x, dt, Bm, Cm, a, chunk, decay_dtype):
     return torch.cat(ys, dim=1), state
 
 
+def step_excess(y, state, want_y, want_state) -> tuple:
+    """(max |error| of the new state, of y, and the largest excess over the
+    tolerance) for the decode step's kernel against its plain version, at
+    the tolerance of tests/test_torch_cuda.py's ``test_ssd_step_matches_plain``:
+    the kernel rounds each new state element as the plain ops do, so the
+    state within 1e-6 (1 + max|want|) (``expf`` beside torch's exp); y, summed
+    over N in another order, within one bf16 rounding flip, 2**-7 |want|,
+    above a floor of 1e-4 (1 + max|want|).  Passes while the excess is <= 0."""
+    d_state = (state - want_state).abs().max().item()
+    state_tol = 1e-6 * (1 + want_state.abs().max().item())
+    want = want_y.float()
+    d_y = (y.float() - want).abs()
+    y_tol = 1e-4 * (1 + want.abs().max().item()) + 2.0 ** -7 * want.abs()
+    return d_state, d_y.max().item(), max(d_state - state_tol, (d_y - y_tol).max().item())
+
+
+def _ssd_step_without_inflow(state, x, dt, a, Bm, Cm, d_skip):
+    """A deliberately wrong decode step: the plain version with the inflow
+    B ⊗ (dt·x) dropped, so the state only decays."""
+    import torch
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    return ssd_ops.ssd_step_plain(state, x, dt, a, torch.zeros_like(Bm), Cm, d_skip)
+
+
+def _ssd_step_timed(B, H, N, P, layers, d_skip_dtype):
+    """The decode step's kernel and its plain version at [B, H, N, P], bf16
+    x in the layout the conv's einsum leaves (strides (1, B)): one fp32
+    state a layer, ``layers`` of them taken in turn, as a decode step takes
+    them (at B 8 one state fits in L2, 38 do not).  The bound: each state
+    element read and written once, x, y, dt, B, C, a and d_skip moved once."""
+    import torch
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    g = torch.Generator(device="cuda").manual_seed(B)
+    states = torch.randn(layers, B, H, N, P, generator=g, device="cuda")
+    x = torch.randn(H * P, B, generator=g, device="cuda").bfloat16().t().view(B, H, P)
+    dt = torch.nn.functional.softplus(torch.randn(B, H, generator=g, device="cuda"))
+    a = -torch.exp(torch.randn(H, generator=g, device="cuda") * 0.3)
+    Bm, Cm = (torch.randn(B, N, generator=g, device="cuda") * 0.5 for _ in "BC")
+    d_skip = torch.randn(H, generator=g, device="cuda").to(d_skip_dtype)
+    turn = [0]
+
+    def call(fn):
+        def go():
+            fn(states[turn[0] % layers], x, dt, a, Bm, Cm, d_skip)
+            turn[0] += 1
+        return go
+
+    n_bytes = (2 * B * H * N * P * 4 + 2 * B * H * P * 2 + B * H * 4 + 2 * B * N * 4
+               + H * 4 + H * d_skip.element_size())
+    b, by = bound_ms(n_bytes, 5 * B * H * N * P, "float32")
+    times = kernel_times(2 * layers, b, ms=call(ssd_ops.ssd_step),
+                         plain_ms=call(ssd_ops.ssd_step_plain))
+    split, tn = ssd_ops.step_tile(B, H, N, P, ssd_ops._sm_count(states.device))
+    del states
+    torch.cuda.empty_cache()
+    return {"shape": [B, H, N, P], "split": split, "tn": tn, "mbytes": n_bytes / 1e6,
+            "bound_ms": b, "bound_by": by, "roofline": b / times["ms"], **times}
+
+
 def phase_hybrid():
     import dataclasses
 
@@ -1045,7 +1119,7 @@ def phase_hybrid():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_scan_torch
-    from repro_torch.models import ssm
+    from repro_torch.models import decode_graph, ssm
 
     cfg = get_config("zamba2-1.2b")
     H = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
@@ -1056,16 +1130,68 @@ def phase_hybrid():
         raise AssertionError(f"zamba2-1.2b is not at full width: {cfg}")
     counters = {"k3": (ssd_ops, "launches"), "k3_sm90": (ssd_ops, "launches_sm90"),
                 "k3_scalar": (ssd_ops, "launches_scalar"),
+                "ssd_step": (ssd_ops, "step_launches"),
                 **{c: (fa_ops, c) for c in COUNTERS}}
     run, model, tokens = _serve(cfg, counters)
     launches = run["launches"]
     sites = len(cfg.shared_sites())
+    # the served decode steps replay one graph: the host calls ssd_step only
+    # in the warm-up steps and the capture, once a Mamba2 layer each
+    captures = model.decode_graph_captures
     want = {"k3": 2 * cfg.n_layers, "k3_sm90": 2 * cfg.n_layers, "k3_scalar": 0,
-            "launches": 2 * sites, "launches_sm90": 2 * sites, "launches_scalar": 0}
-    if launches != want:
-        raise AssertionError(f"launches {launches} in the hybrid run, want {want}: every bf16 "
-                             f"Mamba2 layer takes K3's sm90 route and every bf16 "
+            "launches": 2 * sites, "launches_sm90": 2 * sites, "launches_scalar": 0,
+            "ssd_step": cfg.n_layers * (decode_graph.WARM_UP_STEPS + 1) * captures}
+    if launches != want or captures != 1:
+        raise AssertionError(f"launches {launches} in the hybrid run, want {want}, from "
+                             f"{captures} graph captures, want 1: every bf16 Mamba2 layer "
+                             f"takes K3's sm90 route and ssd_step's kernel, every bf16 "
                              f"shared-attention site K2's")
+    # the profiled replays run the kernel in every layer of every step
+    decode_prof = run["profile"]["decode_16_steps"]
+    if decode_prof["device_ms"] is not None and \
+            decode_prof["kernel_calls"]["ssd_step"] != 16 * cfg.n_layers:
+        raise AssertionError(f"ssd_step's kernel ran {decode_prof['kernel_calls']['ssd_step']} "
+                             f"times in 16 replayed decode steps, want {16 * cfg.n_layers}")
+
+    # ssd_step's kernel against its plain version at each Mamba2 layer's own
+    # inputs in 16 decode steps from the first batch's prefill, run op by op
+    # (a graph cannot hold the check's host reads): every layer-step launches
+    # the kernel, and the step without its inflow must fail the same check
+    real_step = ssm.ssd_step
+    step_checks, wrong_steps = [], []
+
+    def step_checked(state, x, dt, a, Bm, Cm, d_skip):
+        want_state, wrong_state = state.clone(), state.clone()
+        want = ssd_ops.ssd_step_plain(want_state, x, dt, a, Bm, Cm, d_skip)
+        wrong = _ssd_step_without_inflow(wrong_state, x, dt, a, Bm, Cm, d_skip)
+        got = real_step(state, x, dt, a, Bm, Cm, d_skip)
+        step_checks.append(step_excess(got, state, want, want_state))
+        wrong_steps.append(step_excess(wrong, wrong_state, want, want_state))
+        return got
+
+    logits, cache = model.prefill({"tokens": tokens}, max_len=2048)
+    tok, pos = logits.argmax(-1)[:, None], cache["pos"]
+    ssd_ops.step_launches = 0
+    ssm.ssd_step = step_checked
+    try:
+        for _ in range(16):
+            tok = model.decode_in_place(cache, {"tokens": tok}, pos).argmax(-1)[:, None]
+            pos += 1
+    finally:
+        ssm.ssd_step = real_step
+    step_launches_op_by_op = ssd_ops.step_launches
+    del cache
+    if step_launches_op_by_op != 16 * cfg.n_layers or len(step_checks) != 16 * cfg.n_layers \
+            or max(x for *_, x in step_checks) > 0:
+        raise AssertionError(f"ssd_step's kernel in 16 op-by-op decode steps: "
+                             f"{step_launches_op_by_op} launches, want {16 * cfg.n_layers}; "
+                             f"(state, y max |error|, excess) per layer-step {step_checks}")
+    if not min(x for *_, x in wrong_steps) > 0:
+        raise AssertionError(f"the decode step without its inflow passes the ssd_step check "
+                             f"at some layer-step: {wrong_steps}")
+    d_skip_dtype = model.layers[0].mamba.d_skip.dtype
+    step_timed = {f"b{B}": _ssd_step_timed(B, H, cfg.ssm_state, cfg.ssm_headdim, cfg.n_layers,
+                                           d_skip_dtype) for B in (64, 8)}
 
     # K3 against the sm90 route's plain version at each of the 38 layers' own
     # inputs, in bf16 as served, in one forward over the first batch; the SSD
@@ -1145,10 +1271,21 @@ def phase_hybrid():
          layer_max_excess=max(x for _, x in layer_excess),
          no_carry_layer_max_excess=max(x for _, x in wrong_excess),
          no_carry_layers_failing=sum(x > 0 for _, x in wrong_excess),
-         fp32_logits_plain_q64_vs_plain_max_abs=floor, **gaps, **run)
+         fp32_logits_plain_q64_vs_plain_max_abs=floor,
+         ssd_step_launches=launches["ssd_step"],
+         ssd_step_calls_in_16_replayed_steps=decode_prof["kernel_calls"]["ssd_step"],
+         ssd_step_launches_op_by_op=step_launches_op_by_op,
+         ssd_step_state_max_abs_err=max(e for e, _, _ in step_checks),
+         ssd_step_y_max_abs_err=max(e for _, e, _ in step_checks),
+         ssd_step_max_excess=max(x for *_, x in step_checks),
+         no_inflow_min_excess=min(x for *_, x in wrong_steps),
+         ssd_step_timed=step_timed, **gaps, **run)
     return {"k3_sm90": launches["k3_sm90"], "k3_scalar": fp32_k3["launches_scalar"],
             "k2_sm90": launches["launches_sm90"],
-            "k2_scalar": fp32_launches["launches_scalar"]}
+            "k2_scalar": fp32_launches["launches_scalar"],
+            "ssd_step": launches["ssd_step"], "ssd_step_op_by_op": step_launches_op_by_op,
+            "ssd_step_err": max(max(e, f) for e, f, _ in step_checks),
+            "ssd_step_timed": step_timed}
 
 
 # ------------------------------------------ the vlm, audio and MoE families ----
@@ -3183,6 +3320,18 @@ def run_phases(torch) -> list:
          "launches_by_path": {"zamba2-1.2b fp32": hybrid["k3_scalar"],
                               "distributed fp32": mesh["k3_scalar"]},
          **k3["scalar"]},
+        {"name": "ssd_step", "route": "cuda", "source": "src/repro_torch/csrc/ssd_step.cu",
+         "replaces": "none: the JAX package's decode step is plain jnp "
+                     "(src/repro/models/ssm.py, mamba2_decode)",
+         "launches": hybrid["ssd_step"] + hybrid["ssd_step_op_by_op"],
+         "launches_by_path": {"zamba2-1.2b served (warm-up and capture; replays relaunch it)":
+                              hybrid["ssd_step"],
+                              "zamba2-1.2b op-by-op check": hybrid["ssd_step_op_by_op"]},
+         "max_abs_err": hybrid["ssd_step_err"],
+         **{k: hybrid["ssd_step_timed"]["b64"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "at_batch_8": {k: hybrid["ssd_step_timed"]["b8"][k]
+                        for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
     ]
     idle = [kern["name"] for kern in kernels if not kern["launches"]]
     if idle:
@@ -3190,7 +3339,7 @@ def run_phases(torch) -> list:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("launches_shard_path", "launches_chaos_join", "launches_by_path",
-             "at_llama_shape", "at_deepseek_shape", "bf16_decay")
+             "at_llama_shape", "at_deepseek_shape", "bf16_decay", "at_batch_8")
     return [json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                     for kern in kernels]}),
             card,

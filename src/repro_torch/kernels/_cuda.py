@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("event_join", "flash_attention", "flash_attention_sm90", "ssd_scan",
-           "ssd_scan_sm90")
+           "ssd_scan_sm90", "ssd_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -64,6 +64,12 @@ _SIGNATURES = {
          [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
           _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P]),
         ("ssd_scan_sm90_error_string", ctypes.c_char_p, [_I]),
+    ],
+    "ssd_step": [
+        ("ssd_step_launch", _I,
+         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+          _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P]),
+        ("ssd_step_error_string", ctypes.c_char_p, [_I]),
     ],
 }
 

@@ -1,8 +1,8 @@
 """K2 and K3 on a mesh: the kernels read ``data_ptr()``, so a DTensor is
-never handed to them.  ``flash_attention`` and ``ssd`` given DTensors run
-their own route (the kernel on the card, its plain version on the CPU) on
-each rank's local shards through ``local_map``, the counterpart of what
-GSPMD does around a Pallas call.
+never handed to them.  ``flash_attention``, ``ssd`` and ``ssd_step`` given
+DTensors run their own route (the kernel on the card, its plain version on
+the CPU) on each rank's local shards through ``local_map``, the
+counterpart of what GSPMD does around a Pallas call.
 
 The layout comes from the installed activation resolver's placements for
 ("batch", "seq", "heads", None) (``models.layers.set_activation_resolver``;
@@ -11,7 +11,8 @@ redistributed to it before the call: a sequence split between blocks
 (``act_seq``) is made whole there, as the reference's ``lsc(q, "batch",
 "seq", "heads", None)`` does.  A kernel takes batch and heads split; any
 other layout raises ``ValueError`` and is never gathered whole behind the
-caller's back.
+caller's back.  ``ssd_step`` runs at its state's own placements instead,
+since it updates the state in place.
 """
 from __future__ import annotations
 

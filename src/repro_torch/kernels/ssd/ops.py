@@ -30,8 +30,18 @@ backpropagates through it (the JAX package has no backward kernel).
 (serving) the forward is the same one launch.  On DTensors (the mesh path)
 each rank runs the route on its local shards (``kernels._mesh``): batch
 and heads may be split; B and C follow the batch split, a the heads'.
+
+``ssd_step`` is the decode step's single-step recurrence on the fp32
+state [B,H,N,P], in place: on CUDA tensors it launches
+``csrc/ssd_step.cu``, which reads and writes each state element once
+(``step_launches`` counts its calls); on CPU tensors it runs
+``ssd_step_plain``.  On DTensors each rank runs the same on its local
+shards, in place: the state's own batch or heads split, which x, dt, B and
+C follow on the batch and a and d_skip on the heads.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -42,6 +52,7 @@ launches = 0
 launches_sm90 = 0
 launches_scalar = 0
 backward_calls = 0
+step_launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 DECAY_DTYPES = (torch.float32, torch.bfloat16)
@@ -50,6 +61,8 @@ MAX_CHUNK = 128         # the kernels' tiles hold at most 128 steps
 SM90_DIMS = (64,)       # N = P of the sm90 route
 # each route's plain version: the arguments of ssd_scan_torch
 PLAIN_ARGS = {"sm90": {"split": True}, "scalar": {}}
+STEP_THREADS = 256      # at most, a block of ssd_step.cu
+STEP_ROWS = 4           # state rows a thread of ssd_step.cu holds in flight
 
 
 def smem_bytes(Q: int, N: int, P: int) -> int:
@@ -265,3 +278,115 @@ def _ssd_on_mesh(x, dt, Bm, Cm, a, chunk, decay_dtype):
                      (x, dt, Bm, Cm, a), (base, base, shared, shared, heads),
                      (list(base), list(state)), x.device_mesh,
                      (base, base, shared_grad, shared_grad, heads_grad))
+
+
+# ------------------------------------------------------------ decode step ----
+def _step_check(state, x, dt, a, Bm, Cm, d_skip) -> None:
+    if state.dim() != 4 or x.dim() != 3 or dt.dim() != 2 or a.dim() != 1 \
+            or Bm.dim() != 2 or Cm.dim() != 2 or d_skip.dim() != 1:
+        raise ValueError("ssd_step: state must be [B,H,N,P], x [B,H,P], dt [B,H], a and "
+                         "d_skip [H], Bm and Cm [B,N]")
+    B, H, N, P = state.shape
+    if x.shape != (B, H, P) or dt.shape != (B, H) or a.shape != (H,) \
+            or Bm.shape != (B, N) or Cm.shape != (B, N) or d_skip.shape != (H,):
+        raise ValueError(f"ssd_step: shapes state {tuple(state.shape)}, x {tuple(x.shape)}, "
+                         f"dt {tuple(dt.shape)}, a {tuple(a.shape)}, Bm {tuple(Bm.shape)}, "
+                         f"Cm {tuple(Cm.shape)}, d_skip {tuple(d_skip.shape)} do not agree")
+    if P % 4 or P > 4 * STEP_THREADS:
+        raise ValueError(f"ssd_step: P {P}: the kernel takes P a multiple of 4, at most "
+                         f"{4 * STEP_THREADS}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"ssd_step: x must be one of {_DTYPES}, got {x.dtype}")
+    if any(t.dtype != torch.float32 for t in (state, dt, a, Bm, Cm)):
+        raise ValueError("ssd_step: state, dt, a, Bm and Cm must be float32")
+    if any(t.device != state.device for t in (x, dt, a, Bm, Cm, d_skip)):
+        raise ValueError("ssd_step: all inputs must be on one device")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def step_tile(B: int, H: int, N: int, P: int, sms: int):
+    """(split, tn) of ``csrc/ssd_step.cu`` for a [B,H,N,P] state: P is
+    split between ``split`` blocks until B·H·split fills ``sms`` SMs four
+    blocks deep (or a slice is 4 columns wide); ``tn`` threads split N, so a
+    thread holds at most ``STEP_ROWS`` rows."""
+    split = 1
+    while B * H * split < 4 * sms and P // split % 8 == 0:
+        split *= 2
+    tp = P // split // 4
+    return split, max(1, min(-(-N // STEP_ROWS), STEP_THREADS // tp))
+
+
+def ssd_step_plain(state, x, dt, a, Bm, Cm, d_skip):
+    """The step in tensor ops: the same function as ``ssd_step``, writing
+    the new state into ``state``."""
+    xh = x.float()
+    decay = torch.exp(dt * a)[:, :, None, None]
+    state.mul_(decay)
+    inflow = torch.einsum("bn,bhp->bhnp", Bm, dt[:, :, None] * xh)
+    state.add_(inflow)
+    y = torch.einsum("bn,bhnp->bhp", Cm, state)
+    y = y + xh * d_skip.float()[None, :, None]
+    return y.to(x.dtype)
+
+
+def _ssd_step_cuda(state, x, dt, a, Bm, Cm, d_skip):
+    global step_launches
+    if not state.is_contiguous() or state.data_ptr() % 16:
+        raise ValueError("ssd_step: the state must be contiguous and 16-byte aligned")
+    if not a.is_contiguous():
+        raise ValueError("ssd_step: a must be contiguous")
+    d_skip = d_skip.float().contiguous()
+    B, H, N, P = state.shape
+    split, tn = step_tile(B, H, N, P, _sm_count(state.device))
+    y = torch.empty(B, H, P, dtype=x.dtype, device=state.device)
+    lib = _cuda.library("ssd_step")
+    with torch.cuda.device(state.device):
+        err = lib.ssd_step_launch(
+            state.data_ptr(), x.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), d_skip.data_ptr(), y.data_ptr(), B, H, N, P, split, tn,
+            *x.stride(), *dt.stride(), *Bm.stride(), *Cm.stride(),
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _cuda.check(err, lib, "ssd_step")
+    step_launches += 1
+    return y
+
+
+def ssd_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, d_skip: torch.Tensor) -> torch.Tensor:
+    """One step of the recurrence: state [B,H,N,P] fp32, updated in place to
+    exp(dt·a)·state + Bm ⊗ (dt·x); → y [B,H,P] in x's dtype, Cm·state + d_skip·x.
+    x [B,H,P] is fp32 or bf16, d_skip [H] of any float dtype; dt [B,H], a [H],
+    Bm and Cm [B,N] are fp32.  The kernel on CUDA tensors (no fallback),
+    ``ssd_step_plain`` on CPU tensors; on DTensors, either on the local
+    shards.  A shape the kernel does not take raises ``ValueError`` on
+    every device."""
+    if _mesh.is_dtensor(state):
+        return _ssd_step_on_mesh(state, x, dt, a, Bm, Cm, d_skip)
+    _step_check(state, x, dt, a, Bm, Cm, d_skip)
+    if state.device.type == "cpu":
+        return ssd_step_plain(state, x, dt, a, Bm, Cm, d_skip)
+    if state.device.type != "cuda":
+        raise ValueError(f"ssd_step: no kernel for device {state.device}")
+    return _ssd_step_cuda(state, x, dt, a, Bm, Cm, d_skip)
+
+
+def _ssd_step_on_mesh(state, x, dt, a, Bm, Cm, d_skip):
+    """``ssd_step`` on each rank's local shards of the state as it is split:
+    every (b, h) is its own recurrence, so nothing is summed across ranks.
+    The state is never redistributed, as its update is in place; the other
+    inputs are, to its split."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    st = tuple(state.placements)
+    if not all(p.is_replicate() or p.is_shard(0) or p.is_shard(1) for p in st):
+        raise ValueError(f"ssd_step on a mesh: state placements {st}; the step takes "
+                         f"batch (dim 0) and heads (dim 1) split, the rest whole")
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in st)
+    heads = tuple(Shard(0) if p.is_shard(1) else Replicate() for p in st)
+    return _mesh.run(ssd_step, (state, x, dt, a, Bm, Cm, d_skip),
+                     (st, st, st, heads, rows, rows, heads), [*st], state.device_mesh)

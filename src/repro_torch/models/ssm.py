@@ -8,8 +8,9 @@ the short causal conv applies to the x branch only and B and C form a
 single group shared by the heads, as in the reference.  Every weight is
 cast to the activation dtype where it is used.
 
-The full-sequence scan goes through ``kernels.ssd.ops.ssd``: the
-hand-written SSD kernel on a CUDA tensor, its plain version on the CPU.
+The full-sequence scan goes through ``kernels.ssd.ops.ssd``, the decode
+step's state update through ``kernels.ssd.ops.ssd_step``: each the
+hand-written kernel on a CUDA tensor, its plain version on the CPU.
 The plain version is the JAX package's chunked path with one difference:
 the intra-chunk decay is masked before its exp, where the reference
 overflows to NaN for long chunks (``kernels/ssd/ref.py`` says when).
@@ -20,10 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.ssd.ops import ssd
+from ..kernels.ssd.ops import ssd, ssd_step
 from ..kernels.ssd.ref import ssd_scan_torch
 from .common import make_param
-from .layers import RMSNorm, einsum, lsc, rms_norm
+from .layers import RMSNorm, lsc, rms_norm
 
 
 class Mamba2(nn.Module):
@@ -101,6 +102,7 @@ def mamba2_decode(p: Mamba2, x, state, conv_cache):
     """Single-step recurrence.  x [B,1,D]; state [B,H,N,P] fp32 (as
     ``Model.cache_layout`` holds it); conv_cache [B,W-1,Di] holds the
     previous pre-conv x-branch inputs.  Writes the new state into ``state``
+    (``ssd_step``: on the card one kernel that reads and writes it once)
     and the new conv cache into ``conv_cache``, in place, and returns (out
     [B,1,D], state, conv_cache): no new state is made, so a captured decode
     step can hold it (``models.decode_graph``)."""
@@ -114,14 +116,7 @@ def mamba2_decode(p: Mamba2, x, state, conv_cache):
     C_ = (x[:, 0] @ p.wC.to(dtype)).float()
     dt, a = _dt_and_a(p, x[:, 0])                                       # [B,H]
     H = a.shape[0]
-    xh = xb.reshape(xb.shape[0], H, -1).float()
-    decay = torch.exp(dt * a)[:, :, None, None]
-    state.mul_(decay)
-    inflow = einsum("bn,bhp->bhnp", B_, dt[:, :, None] * xh)
-    state.add_(inflow)
-    y = einsum("bn,bhnp->bhp", C_, state)
-    y = y + xh * p.d_skip.float()[None, :, None]
-    y = y.reshape(xb.shape).to(dtype)
-    y = rms_norm(y, p.out_norm.w, p.out_norm.eps) * F.silu(z)
+    y = ssd_step(state, xb.reshape(xb.shape[0], H, -1), dt, a, B_, C_, p.d_skip)
+    y = rms_norm(y.reshape(xb.shape), p.out_norm.w, p.out_norm.eps) * F.silu(z)
     out = torch.einsum("bf,fd->bd", y, p.wo.to(dtype))[:, None, :]
     return out, state, conv_cache.copy_(window[:, 1:, :])

@@ -21,7 +21,9 @@ tensor-core products into two bf16 terms, as the kernel does).  Kernel and
 plain version compute in fp32 in another order (the chunk's cumsum of a·dt
 included), so the state and fp32 outputs differ by at most
 1e-4·(1 + max|want|), and bf16 outputs by one rounding flip more,
-2**-7 |want|.  The model families of the vlm, audio, moe and mla_moe kinds
+2**-7 |want|.  The decode step's kernel (``ssd_step``) rounds each new state
+element as its plain version does, so the state agrees within a few fp32
+ulps; its y is held as K3's bf16 outputs are.  The model families of the vlm, audio, moe and mla_moe kinds
 prefill on the card against the same weights on the CPU, at smoke size in
 fp32: their attention takes K2's scalar route on the card and the chunked
 plain path on the CPU, so logits and cache agree within 1e-4·(1 + max|cpu|).
@@ -348,6 +350,47 @@ def test_ssd_sm90_refuses_what_it_does_not_take(cuda):
     assert ssd_ops.launches == before
 
 
+@pytest.mark.parametrize("layout", ["einsum", "columns"])
+@pytest.mark.parametrize("B,H,N,P", [
+    (64, 64, 64, 64),   # zamba2-1.2b's chat decode step
+    (8, 64, 64, 64),    # its longprompt decode step: P split in two
+    (4, 8, 16, 16),     # the smoke model
+])
+def test_ssd_step_matches_plain(cuda, B, H, N, P, layout):
+    """The decode step's kernel against its plain version, with bf16 x read
+    as the conv output [B, H·P] viewed [B, H, P], in the layout the conv's
+    einsum leaves on the card (strides (1, B)) or as a wider tensor's
+    columns (a batch stride that is not H·P).  Each new state element is rounded
+    as the plain ops round it, so the state agrees within a few fp32 ulps,
+    1e-6·(1 + max|want|) (``expf`` beside torch's exp); y, summed over N in
+    another order, within one bf16 rounding flip, 2**-7 |want|, above a
+    floor of 1e-4·(1 + max|want|).  The state is written in place and the
+    launch is counted."""
+    gen = torch.Generator(device=cuda).manual_seed(B + N)
+    state = torch.randn(B, H, N, P, generator=gen, device=cuda)
+    if layout == "einsum":
+        conv = torch.randn(H * P, B, generator=gen, device=cuda).to(torch.bfloat16).t()
+    else:
+        conv = torch.randn(B, 2 * H * P, generator=gen, device=cuda).to(torch.bfloat16)
+        conv = conv[:, :H * P]
+    x = conv.view(B, H, P)
+    dt = torch.nn.functional.softplus(torch.randn(B, H, generator=gen, device=cuda))
+    a = -torch.exp(torch.randn(H, generator=gen, device=cuda) * 0.3)
+    Bm, Cm = (torch.randn(B, N, generator=gen, device=cuda) * 0.5 for _ in range(2))
+    d_skip = torch.randn(H, generator=gen, device=cuda).to(torch.bfloat16)
+    want_state = state.clone()
+    want = ssd_ops.ssd_step_plain(want_state, x, dt, a, Bm, Cm, d_skip)
+    before, ptr = ssd_ops.step_launches, state.data_ptr()
+    y = ssd_ops.ssd_step(state, x, dt, a, Bm, Cm, d_skip)
+    torch.cuda.synchronize()
+    assert ssd_ops.step_launches == before + 1 and state.data_ptr() == ptr
+    assert y.dtype == torch.bfloat16 and y.shape == (B, H, P)
+    st_err = (state - want_state).abs().max().item()
+    assert st_err <= 1e-6 * (1 + want_state.abs().max().item()), st_err
+    floor = 1e-4 * (1 + want.float().abs().max().item())
+    assert ((y.float() - want.float()).abs() <= floor + 2.0 ** -7 * want.float().abs()).all()
+
+
 def _bf16_decay_tol(x, dt, Bm, Cm, a, chunk):
     """The bf16-decay forms' tolerance beyond ``_assert_ssd_close``'s: the
     kernel and its plain version round G = C·Bᵀ to bf16 after sums of
@@ -635,6 +678,31 @@ def test_kernels_through_local_map_on_the_card_mesh(card_mesh):
     assert (fa_ops.launches_sm90 - fa0, ssd_ops.launches_sm90 - ssd0) == (1, 1)
     assert torch.equal(o.full_tensor(), want_o)
     assert torch.equal(y.full_tensor(), want_y) and torch.equal(s.full_tensor(), want_s)
+
+
+def test_ssd_step_through_local_map_on_the_card_mesh(card_mesh):
+    """The decode step's state update given DTensors on the (1,) mesh, its
+    state split on the batch as the cache holds it: one launch of
+    ``csrc/ssd_step.cu`` on the local shards, the meshless call's y and new
+    state bit for bit, the state updated in place."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    B, H, N, P = 4, 8, 16, 16
+    state = torch.randn(B, H, N, P, generator=g, device="cuda")
+    x = torch.randn(H * P, B, generator=g, device="cuda").bfloat16().t().view(B, H, P)
+    dt = torch.nn.functional.softplus(torch.randn(B, H, generator=g, device="cuda"))
+    a = -torch.exp(torch.randn(H, generator=g, device="cuda") * 0.3)
+    Bm, Cm = (torch.randn(B, N, generator=g, device="cuda") for _ in "BC")
+    d_skip = torch.randn(H, generator=g, device="cuda").bfloat16()
+    st = distribute_tensor(state, card_mesh, [Shard(0)])
+    rest = [distribute_tensor(t, card_mesh, [Replicate()]) for t in (x, dt, a, Bm, Cm, d_skip)]
+    want_state = state.clone()
+    want = ssd_ops.ssd_step(want_state, x, dt, a, Bm, Cm, d_skip)
+    before = ssd_ops.step_launches
+    y = ssd_ops.ssd_step(st, *rest)
+    assert ssd_ops.step_launches == before + 1
+    assert torch.equal(y.full_tensor(), want) and torch.equal(st.full_tensor(), want_state)
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b", "qwen2-vl-72b",

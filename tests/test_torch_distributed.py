@@ -18,7 +18,8 @@
   (smoke, fp32 activations, the reference's weights) equals the reference's
   jitted loss within 1e-5 relative (the two packages sum in another order);
   K2 and K3 given DTensors equal their meshless calls exactly, and a layout
-  they cannot take raises.
+  they cannot take raises; so does the decode step's state update
+  (``ssd_step``), its state updated in place on the local shards.
 - On a (2, 2) gloo mesh in 4 processes (``_mesh_worker.py``), smoke
   llama3.2-3b in fp32: one train step equals the single-process step, the
   loss and every parameter after it within 1e-5 relative; a prefill into a
@@ -299,6 +300,38 @@ def test_kernels_take_dtensors_through_local_shards(host_mesh):
     qs, ks, vs = (distribute_tensor(t, host_mesh, [Shard(1)]) for t in (q, k, v))
     with pytest.raises(ValueError, match="heads \\(dim 2\\) split"):
         fa_ops.flash_attention(qs, ks, vs)
+
+
+@pytest.mark.parametrize("split", ["whole", "batch", "heads"])
+def test_ssd_step_takes_dtensors_through_local_shards(host_mesh, split):
+    """The decode step's state update given DTensors runs ``ssd_step`` on
+    the local shards of the state as it is split (here the plain version,
+    on the CPU): the meshless call's y and new state bit for bit, the new
+    state written into the DTensor it was given; the other inputs, whole,
+    are redistributed to the state's split.  A state split on N raises."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    g = torch.Generator().manual_seed(2)
+    B, H, N, P = 2, 4, 8, 12
+    state = torch.randn(B, H, N, P, generator=g)
+    x = torch.randn(B, H * P, generator=g).bfloat16().view(B, H, P)
+    dt = torch.nn.functional.softplus(torch.randn(B, H, generator=g))
+    a = -torch.exp(torch.randn(H, generator=g) * 0.3)
+    Bm, Cm = torch.randn(B, N, generator=g), torch.randn(B, N, generator=g)
+    d_skip = torch.randn(H, generator=g)
+    want_state = state.clone()
+    want = ssd_ops.ssd_step_plain(want_state, x, dt, a, Bm, Cm, d_skip)
+    placement = {"whole": Replicate(), "batch": Shard(0), "heads": Shard(1)}[split]
+    st = distribute_tensor(state, host_mesh, [placement])
+    rest = [distribute_tensor(t, host_mesh, [Replicate()]) for t in (x, dt, a, Bm, Cm, d_skip)]
+    y = ssd_ops.ssd_step(st, *rest)
+    assert tuple(y.placements) == (placement,)
+    assert torch.equal(y.full_tensor(), want) and torch.equal(st.full_tensor(), want_state)
+    on_n = distribute_tensor(state, host_mesh, [Shard(2)])
+    with pytest.raises(ValueError, match="batch \\(dim 0\\) and heads \\(dim 1\\) split"):
+        ssd_ops.ssd_step(on_n, *rest)
 
 
 # ------------------------------------------- a (2, 2) mesh in 4 processes ----

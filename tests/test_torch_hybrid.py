@@ -25,6 +25,7 @@ from repro.models.ssm import mamba2_decode as jax_decode
 from repro.models.ssm import mamba2_forward as jax_forward
 from repro.models.ssm import mamba2_init
 from repro_torch.configs import get_config
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import Model
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.ssm import Mamba2, mamba2_decode, mamba2_forward
@@ -114,6 +115,73 @@ def test_mamba2_chunked_equals_recurrent():
     outs = [mamba2_decode(block, xt[:, t:t + 1], st, cc)[0] for t in range(16)]
     _close(torch.cat(outs, dim=1), y_chunked.numpy(), 2e-4)
     _close(st, state.numpy(), 2e-4)
+
+
+def _step_inputs(B, H, N, P, dtype, seed=5):
+    gen = torch.Generator().manual_seed(seed)
+    state = torch.randn(B, H, N, P, generator=gen)
+    # x as mamba2_decode passes it: the conv output [B, Di] viewed [B, H, P]
+    x = torch.randn(B, H * P, generator=gen).to(dtype).view(B, H, P)
+    dt = torch.nn.functional.softplus(torch.randn(B, H, generator=gen))
+    a = -torch.exp(torch.randn(H, generator=gen) * 0.3)
+    Bm, Cm = (torch.randn(B, N, generator=gen) * 0.5 for _ in range(2))
+    d_skip = torch.randn(H, generator=gen).to(torch.bfloat16)
+    return state, x, dt, a, Bm, Cm, d_skip
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_step_on_the_cpu_is_its_plain_version(dtype):
+    """On CPU tensors ``ssd_step`` runs ``ssd_step_plain``: the same y and
+    the same new state bit for bit, the state written into the tensor it is
+    given, and no kernel launch counted."""
+    state, *rest = _step_inputs(3, 4, 8, 12, dtype)
+    want_state = state.clone()
+    want = ssd_ops.ssd_step_plain(want_state, *rest)
+    before = ssd_ops.step_launches
+    got = ssd_ops.ssd_step(state, *rest)
+    assert got.dtype == dtype and got.shape == (3, 4, 12)
+    assert torch.equal(got, want) and torch.equal(state, want_state)
+    assert not torch.equal(state, _step_inputs(3, 4, 8, 12, dtype)[0])
+    assert ssd_ops.step_launches == before
+
+
+def test_ssd_step_refuses_what_the_kernel_does_not_take():
+    """A shape the kernel cannot tile (P not a multiple of its 4-column
+    loads, or past 4 columns × 256 threads), an x dtype it has no instance
+    for, a state that is not fp32, or shapes that disagree raise
+    ``ValueError`` on the CPU as on the card, before the state is
+    touched."""
+    for shape, match in (((2, 2, 4, 6), "multiple of 4"), ((1, 1, 2, 1028), "at most")):
+        state, *rest = _step_inputs(*shape, torch.float32)
+        kept = state.clone()
+        with pytest.raises(ValueError, match=match):
+            ssd_ops.ssd_step(state, *rest)
+        assert torch.equal(state, kept)
+    state, x, dt, a, Bm, Cm, d_skip = _step_inputs(2, 2, 4, 8, torch.float32)
+    with pytest.raises(ValueError, match="x must be"):
+        ssd_ops.ssd_step(state, x.half(), dt, a, Bm, Cm, d_skip)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_ops.ssd_step(state.bfloat16(), x, dt, a, Bm, Cm, d_skip)
+    with pytest.raises(ValueError, match="do not agree"):
+        ssd_ops.ssd_step(state, x, dt, a, Bm[:, :3], Cm, d_skip)
+
+
+@pytest.mark.parametrize("B,H,N,P", [(64, 64, 64, 64), (8, 64, 64, 64), (4, 8, 16, 16),
+                                     (1, 1, 8, 8), (2, 3, 5, 1024), (1, 2, 300, 4)])
+def test_ssd_step_tile_fits_the_kernel(B, H, N, P):
+    """The wrapper's tile for a [B,H,N,P] state on 132 SMs: P splits into
+    slices of whole 4-column loads, a block has at most 256 threads, each
+    holding at most ``STEP_ROWS`` rows unless the block is full; chat's B 64
+    takes one block a (b, h), longprompt's B 8 halves P to fill the card."""
+    split, tn = ssd_ops.step_tile(B, H, N, P, 132)
+    tp = P // split // 4
+    assert P % (4 * split) == 0 and 1 <= tp * tn <= ssd_ops.STEP_THREADS
+    assert tn * ssd_ops.STEP_ROWS >= N or tp * tn * 2 > ssd_ops.STEP_THREADS
+    assert B * H * split >= 4 * 132 or P // split % 8
+    if (B, P) == (64, 64):
+        assert (split, tn) == (1, 16)
+    if (B, P) == (8, 64):
+        assert (split, tn) == (2, 16)
 
 
 # ------------------------------------------------------------------ zamba2 ----
