@@ -82,9 +82,9 @@ def launcher(lib, x, dt, Bm, Cm, a, Q):
     def run():
         err = lib.ssd_scan_sm90_launch(
             x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), a.data_ptr(),
-            y.data_ptr(), state.data_ptr(), scratch.data_ptr(), decay.data_ptr(), B, S, H, Q,
-            x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
-            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+            y.data_ptr(), state.data_ptr(), scratch.data_ptr(), decay.data_ptr(), B, S, H,
+            64, 1, Q, x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
+            dt.stride(2), Bm.stride(0), Bm.stride(1), 64, Cm.stride(0), Cm.stride(1), 64, 0,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")

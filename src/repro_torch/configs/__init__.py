@@ -8,6 +8,7 @@ from repro_torch.models import ModelConfig
 from . import (deepseek_67b, deepseek_v2_236b, granite_20b, llama3_2_3b,
                musicgen_large, phi3_5_moe, qwen2_vl_72b, xlstm_1_3b, yi_9b,
                zamba2_1_2b)
+from . import nemotron_3_nano_30b_a3b
 
 _MODULES = {
     "granite-20b": granite_20b,
@@ -23,6 +24,11 @@ _MODULES = {
 }
 
 ARCHS = list(_MODULES.keys())
+# the port's alone (no family of the JAX package's computes them): in
+# ``get_config`` and ``ALL_ARCHS``, not in ``ARCHS``, which the tests hold
+# against the JAX package
+_MODULES["nemotron-3-nano-30b-a3b"] = nemotron_3_nano_30b_a3b
+ALL_ARCHS = list(_MODULES.keys())
 
 # shape grid assigned to every LM architecture
 SHAPES: Dict[str, dict] = {

@@ -70,16 +70,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 struct Args {
   const void* x;    // [B, S, H, P], unit stride on P
   const float* dt;  // [B, S, H]
-  const void* Bm;   // [B, S, N], unit stride on N
-  const void* Cm;   // [B, S, N], unit stride on N
+  const void* Bm;   // [B, S, G, N], unit stride on N
+  const void* Cm;   // [B, S, G, N], unit stride on N
   const float* a;   // [H]
   void* y;          // contiguous [B, S, H, P]
   float* state;     // contiguous [B, H, N, P]
   int B, S, H, P, N, Q;
+  int hpg;                  // heads a group: head h reads group h / hpg
   long long xsb, xss, xsh;  // element strides of x's B, S and H dims
   long long dsb, dss, dsh;  // of dt
-  long long bsb, bss;       // of Bm's B and S dims
-  long long csb, css;       // of Cm
+  long long bsb, bss, bsg;  // of Bm's B, S and G dims
+  long long csb, css, csg;  // of Cm
 };
 
 // Shared memory in floats: must match ops.smem_bytes in the wrapper.
@@ -114,8 +115,8 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd(Args g) {
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const T* x = static_cast<const T*>(g.x) + b * g.xsb + h * g.xsh;
   const float* dt = g.dt + b * g.dsb + h * g.dsh;
-  const T* Bm = static_cast<const T*>(g.Bm) + b * g.bsb;
-  const T* Cm = static_cast<const T*>(g.Cm) + b * g.csb;
+  const T* Bm = static_cast<const T*>(g.Bm) + b * g.bsb + (h / g.hpg) * g.bsg;
+  const T* Cm = static_cast<const T*>(g.Cm) + b * g.csb + (h / g.hpg) * g.csg;
   T* y = static_cast<T*>(g.y) + ((long long)b * S * H + h) * P;  // step s at + s*H*P
   const long long ys = (long long)H * P;
   const float a = g.a[h];
@@ -323,24 +324,25 @@ cudaError_t launch(const Args& g, cudaStream_t stream) {
 
 extern "C" {
 
-// x [B,S,H,P], dt [B,S,H], Bm and Cm [B,S,N] with unit stride on their last
-// dims and the given element strides on the others; a [H]; y contiguous
+// x [B,S,H,P], dt [B,S,H], Bm and Cm [B,S,G,N] with unit stride on their last
+// dims and the given element strides on the others (head h reads group
+// h / (H / G)); a [H]; y contiguous
 // [B,S,H,P] in x's dtype, state contiguous [B,H,N,P] fp32; chunks of Q steps.
 // is_bf16 selects bf16 x, Bm, Cm and y, else fp32; bf16_decay the bf16
 // decay of the intra-chunk term, else fp32.  Launches on `stream` and
 // returns cudaGetLastError() without synchronising.
 int ssd_scan_launch(const void* x, const void* dt, const void* Bm, const void* Cm,
                     const void* a, void* y, void* state, int B, int S, int H, int P,
-                    int N, int Q, long long xsb, long long xss, long long xsh,
+                    int N, int G, int Q, long long xsb, long long xss, long long xsh,
                     long long dsb, long long dss, long long dsh, long long bsb,
-                    long long bss, long long csb, long long css, int is_bf16,
-                    int bf16_decay, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || Q <= 0 || Q > kMaxChunk ||
-      Q > S || smem_floats(Q, N, P) * sizeof(float) > kMaxSmem)
+                    long long bss, long long bsg, long long csb, long long css,
+                    long long csg, int is_bf16, int bf16_decay, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || G <= 0 || H % G || Q <= 0 ||
+      Q > kMaxChunk || Q > S || smem_floats(Q, N, P) * sizeof(float) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   Args g{x, static_cast<const float*>(dt), Bm, Cm, static_cast<const float*>(a), y,
-         static_cast<float*>(state), B, S, H, P, N, Q, xsb, xss, xsh, dsb, dss, dsh,
-         bsb, bss, csb, css};
+         static_cast<float*>(state), B, S, H, P, N, Q, H / G, xsb, xss, xsh, dsb, dss, dsh,
+         bsb, bss, bsg, csb, css, csg};
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16_decay)
     return (int)(is_bf16 ? launch<__nv_bfloat16, true>(g, s) : launch<float, true>(g, s));

@@ -1,5 +1,9 @@
 // ssd_scan_sm90: the Mamba2 SSD chunked scan on Hopper's tensor cores, for
-// bf16 x, B and C with N = P = 64.
+// bf16 x, B and C with P = 64 and N = 64 (zamba2-1.2b) or N = 128
+// (Nemotron-H), each a template instance.  B and C come in G groups,
+// [B, S, G, N]: head h reads group h / (H / G); a block's heads all lie in one
+// group (H / G a multiple of its 8 heads, or G = 1), so it loads one B and
+// one C tile.  G = 1 is the [B, S, N] layout, shared by every head.
 //
 // Replaces the Pallas TPU kernel `ssd_scan` (src/repro/kernels/ssd/ssd.py:78,
 // kernel `_ssd_kernel`) on the bf16 prefill path; csrc/ssd_scan.cu keeps fp32
@@ -56,6 +60,13 @@
 // This design moves about 235 MB (x twice, the scratch through memory four
 // times), three times the function's 73 MB; a single pass that hands h from
 // chunk to chunk in order is the way to the bound.
+// At N = 128 the B and C tiles are rows of 256 bytes (16 chunks, the low
+// three bits of a chunk's index swizzled), each warp of chunk_state takes two
+// n-tiles, the products over N take 8 steps of 16 rather than 4, and a thread
+// holds 8 float4s of h_in rather than 4.  chunk_scan's shared memory grows
+// from 108 KB to 140 KB (C and B 32 KB each), so one block a SM; the state
+// and the scratch are twice as large, so the scratch's passes through memory
+// weigh twice as much against the function's bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,31 +74,42 @@
 
 namespace {
 
-constexpr int kD = 64;          // N = P
-constexpr int kDD = kD * kD;    // elements of one [N, P] state
+constexpr int kP = 64;          // P
 constexpr int kMaxQ = 128;      // steps of a chunk, at most
 constexpr int kHT = 8;          // heads per block
 constexpr int kThreads = 256;   // 8 warps
-constexpr int kTileBytes = kMaxQ * kD * 2;     // 128 rows of 64 bf16: 16 KB
-constexpr int kHTileBytes = kD * kD * 2;       // 64 rows of 64 bf16: 8 KB
+constexpr int kTileBytes = kMaxQ * kP * 2;     // x: 128 rows of 64 bf16, 16 KB
 constexpr int kGTiles = 36;     // 16 x 16 tiles on and below the diagonal of 128 x 128
 static_assert(kHT <= kThreads / 32, "one warp forms each head's cumsum");
+
+// The sizes that follow from N
+template <int kN> struct Dims {
+  static_assert(kN == 64 || kN == 128, "N is 64 or 128");
+  static constexpr int kNP = kN * kP;               // elements of one [N, P] state
+  static constexpr int kBCTileBytes = kMaxQ * kN * 2;  // B or C: 128 rows of N bf16
+  static constexpr int kHTileBytes = kN * kP * 2;   // one bf16 term of h_in, [N][P]
+  static constexpr int kNSlots = kN / 64;           // n-tiles a warp takes in chunk_state
+  static constexpr int kHQ = kNP / 4 / kThreads;    // float4s of h_in a thread holds
+  static constexpr int kMinBlocks = kN == 64 ? 2 : 1;
+  static_assert(2 * kHTileBytes == kBCTileBytes, "h_in's two terms fill B's tile");
+};
 
 struct Args {
   const __nv_bfloat16* x;   // [B, S, H, P], unit stride on P
   const float* dt;          // [B, S, H]
-  const __nv_bfloat16* Bm;  // [B, S, N], unit stride on N
-  const __nv_bfloat16* Cm;  // [B, S, N], unit stride on N
+  const __nv_bfloat16* Bm;  // [B, S, G, N], unit stride on N
+  const __nv_bfloat16* Cm;  // [B, S, G, N], unit stride on N
   const float* a;           // [H]
   __nv_bfloat16* y;         // contiguous [B, S, H, P]
   float* state;             // contiguous [B, H, N, P]
   float* scratch;           // contiguous [B, nc, H, N, P]
   float* decay;             // contiguous [B, nc, H]
   int S, H, Q, Qt, nc;      // Qt: Q rounded up to 16
+  int hpg;                  // heads a group
   long long xsb, xss, xsh;  // element strides of x's B, S and H dims
   long long dsb, dss, dsh;  // of dt
-  long long bsb, bss;       // of Bm's B and S dims
-  long long csb, css;       // of Cm
+  long long bsb, bss, bsg;  // of Bm's B, S and G dims
+  long long csb, css, csg;  // of Cm
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -95,9 +117,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // Byte offset of 16-byte chunk k (columns 8k .. 8k + 7) of row r in a tile of
-// 64 bf16 columns: the chunks of a row are permuted by r % 8.
+// kCols bf16 columns: the chunks of a row are permuted by r % 8 (the low three
+// bits of k), so the 8 rows of an ldmatrix hit every bank once.
+template <int kCols>
 __device__ __forceinline__ uint32_t swz(int r, int k) {
-  return (uint32_t)(r * 128 + ((k ^ (r & 7)) << 4));
+  return (uint32_t)(r * (kCols * 2) + ((k ^ (r & 7)) << 4));
 }
 
 // 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
@@ -145,15 +169,25 @@ __device__ __forceinline__ float2 unpack(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
-// Rows 0 .. Qt-1 of a [*, 64] bf16 source into a swizzled tile, rows >= rows
-// as zeros; one cp.async group is left open for the caller to commit.
+// Rows 0 .. Qt-1 of a [*, kCols] bf16 source into a swizzled tile, rows >=
+// rows as zeros; one cp.async group is left open for the caller to commit.
+template <int kCols>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src,
                                           long long stride, int rows, int Qt) {
-  for (int i = threadIdx.x; i < Qt * 8; i += kThreads) {
-    const int r = i >> 3, k = i & 7;
+  constexpr int kChunks = kCols / 8;
+  for (int i = threadIdx.x; i < Qt * kChunks; i += kThreads) {
+    const int r = i / kChunks, k = i % kChunks;
     const bool ok = r < rows;
-    cp_async16(dst + swz(r, k), ok ? src + r * stride + k * 8 : src, ok);
+    cp_async16(dst + swz<kCols>(r, k), ok ? src + r * stride + k * 8 : src, ok);
   }
+}
+
+// The group's B (or C) rows of chunk s0 for the block whose first head is h0
+__device__ __forceinline__ const __nv_bfloat16* group_rows(const __nv_bfloat16* m,
+                                                           long long sb, long long ss,
+                                                           long long sg, const Args& g,
+                                                           int b, int s0, int h0) {
+  return m + b * sb + s0 * ss + (h0 / g.hpg) * sg;
 }
 
 // dt of the block's heads: sdt[k * kMaxQ + r], 0 past the chunk and past H
@@ -194,13 +228,17 @@ __device__ __forceinline__ void cumsum_warp(const float* sdt, float* sL, float a
 }
 
 // ---- 1. each chunk's state contribution --------------------------------------
-// Grid (nc, head tiles, B).  Warp w computes rows n of n-tile w % 4 and the 32
-// columns p of half w / 4 of s = (w o B)^T . x for each head of the block.
-__global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_state(const Args g) {
+// Grid (nc, head tiles, B).  Warp w computes rows n of the n-tiles w % 4 + 4m
+// (m < N / 64) and the 32 columns p of half w / 4 of s = (w o B)^T . x for
+// each head of the block.
+template <int kN>
+__global__ void __launch_bounds__(kThreads, Dims<kN>::kMinBlocks)
+    ssd_sm90_chunk_state(const Args g) {
+  using D = Dims<kN>;
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t sB = smem_u32(smem);
-  const uint32_t sX = sB + kTileBytes;                           // two buffers
-  float* sDt = reinterpret_cast<float*>(smem + 3 * kTileBytes);  // [kHT][kMaxQ]
+  const uint32_t sX = sB + D::kBCTileBytes;                      // two buffers
+  float* sDt = reinterpret_cast<float*>(smem + D::kBCTileBytes + 2 * kTileBytes);
   float* sW = sDt + kHT * kMaxQ;                                 // [kHT][kMaxQ]
 
   const int c = blockIdx.x, h0 = blockIdx.y * kHT, b = blockIdx.z;
@@ -210,8 +248,8 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_state(const Args g
   const int gq = lane >> 2, t4 = lane & 3, mat = lane >> 3;
   const __nv_bfloat16* xs = g.x + b * g.xsb + s0 * g.xss;
 
-  load_tile(sB, g.Bm + b * g.bsb + s0 * g.bss, g.bss, rows, Qt);
-  load_tile(sX, xs + h0 * g.xsh, g.xss, rows, Qt);
+  load_tile<kN>(sB, group_rows(g.Bm, g.bsb, g.bss, g.bsg, g, b, s0, h0), g.bss, rows, Qt);
+  load_tile<kP>(sX, xs + h0 * g.xsh, g.xss, rows, Qt);
   cp_async_commit();
   load_dt(sDt, g, b, s0, rows, h0);
   __syncthreads();
@@ -231,7 +269,8 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_state(const Args g
   const int ntile = warp & 3, phalf = warp >> 2;
   for (int k = 0; k < nh; ++k) {
     if (k + 1 < nh) {
-      load_tile(sX + ((k + 1) & 1) * kTileBytes, xs + (h0 + k + 1) * g.xsh, g.xss, rows, Qt);
+      load_tile<kP>(sX + ((k + 1) & 1) * kTileBytes, xs + (h0 + k + 1) * g.xsh, g.xss, rows,
+                    Qt);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -240,36 +279,49 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_state(const Args g
     __syncthreads();  // x of head k, and the w of every head
     const uint32_t sXk = sX + (k & 1) * kTileBytes;
     const float* w = sW + k * kMaxQ;
-    float acc[4][4] = {};
+    float acc[D::kNSlots][4][4] = {};
     for (int kt = 0; kt < Qt / 16; ++kt) {
       // A = (w o B)^T: rows n, columns j; B is stored [j][n], hence .trans
-      uint32_t braw[4], ahi[4], alo[4];
-      ldsm_x4_t(braw, sB + swz(16 * kt + (lane & 7) + ((mat >> 1) << 3), 2 * ntile + (mat & 1)));
+      uint32_t ahi[D::kNSlots][4], alo[D::kNSlots][4];
       const int j0 = 16 * kt + 2 * t4;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = j0 + (q >> 1) * 8;
-        const float2 bv = unpack(braw[q]);
-        split2(bv.x * w[j], bv.y * w[j + 1], ahi[q], alo[q]);
+      for (int m = 0; m < D::kNSlots; ++m) {
+        uint32_t braw[4];
+        ldsm_x4_t(braw, sB + swz<kN>(16 * kt + (lane & 7) + ((mat >> 1) << 3),
+                                     2 * (ntile + 4 * m) + (mat & 1)));
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = j0 + (q >> 1) * 8;
+          const float2 bv = unpack(braw[q]);
+          split2(bv.x * w[j], bv.y * w[j + 1], ahi[m][q], alo[m][q]);
+        }
       }
 #pragma unroll
       for (int pp = 0; pp < 2; ++pp) {
         uint32_t xb[4];
-        ldsm_x4_t(xb, sXk + swz(16 * kt + (lane & 7) + ((mat & 1) << 3),
-                                4 * phalf + 2 * pp + (mat >> 1)));
-        mma(acc[2 * pp], ahi, xb[0], xb[1]);
-        mma(acc[2 * pp], alo, xb[0], xb[1]);
-        mma(acc[2 * pp + 1], ahi, xb[2], xb[3]);
-        mma(acc[2 * pp + 1], alo, xb[2], xb[3]);
+        ldsm_x4_t(xb, sXk + swz<kP>(16 * kt + (lane & 7) + ((mat & 1) << 3),
+                                    4 * phalf + 2 * pp + (mat >> 1)));
+#pragma unroll
+        for (int m = 0; m < D::kNSlots; ++m) {
+          mma(acc[m][2 * pp], ahi[m], xb[0], xb[1]);
+          mma(acc[m][2 * pp], alo[m], xb[0], xb[1]);
+          mma(acc[m][2 * pp + 1], ahi[m], xb[2], xb[3]);
+          mma(acc[m][2 * pp + 1], alo[m], xb[2], xb[3]);
+        }
       }
     }
-    float* out = g.scratch + (((long long)b * g.nc + c) * g.H + h0 + k) * kDD;
-    const int n = 16 * ntile + gq;
+    float* out = g.scratch + (((long long)b * g.nc + c) * g.H + h0 + k) * D::kNP;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int p = 32 * phalf + 8 * nt + 2 * t4;
-      *reinterpret_cast<float2*>(out + n * kD + p) = make_float2(acc[nt][0], acc[nt][1]);
-      *reinterpret_cast<float2*>(out + (n + 8) * kD + p) = make_float2(acc[nt][2], acc[nt][3]);
+    for (int m = 0; m < D::kNSlots; ++m) {
+      const int n = 16 * (ntile + 4 * m) + gq;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int p = 32 * phalf + 8 * nt + 2 * t4;
+        *reinterpret_cast<float2*>(out + n * kP + p) =
+            make_float2(acc[m][nt][0], acc[m][nt][1]);
+        *reinterpret_cast<float2*>(out + (n + 8) * kP + p) =
+            make_float2(acc[m][nt][2], acc[m][nt][3]);
+      }
     }
     __syncthreads();  // x buffer k & 1 is free for head k + 2
   }
@@ -278,14 +330,16 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_state(const Args g
 // ---- 2. the pass across chunks ------------------------------------------------
 // One thread per 4 elements of one (b, h) state.  The loads of up to 8 chunks
 // are issued before their stores, so they are in flight together.
+template <int kN>
 __global__ void __launch_bounds__(kThreads) ssd_sm90_state_pass(const Args g, int n_threads) {
+  constexpr int kNP = Dims<kN>::kNP;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_threads) return;
-  const int e = (i % (kDD / 4)) * 4, bh = i / (kDD / 4);
+  const int e = (i % (kNP / 4)) * 4, bh = i / (kNP / 4);
   const int b = bh / g.H, h = bh % g.H;
-  float* slot0 = g.scratch + ((long long)b * g.nc * g.H + h) * kDD + e;
+  float* slot0 = g.scratch + ((long long)b * g.nc * g.H + h) * kNP + e;
   const float* dec0 = g.decay + (long long)b * g.nc * g.H + h;
-  const long long step = (long long)g.H * kDD;  // from one chunk's slot to the next
+  const long long step = (long long)g.H * kNP;  // from one chunk's slot to the next
   float4 hc = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int c0 = 0; c0 < g.nc; c0 += 8) {
     float4 s[8];
@@ -307,7 +361,7 @@ __global__ void __launch_bounds__(kThreads) ssd_sm90_state_pass(const Args g, in
       }
     }
   }
-  *reinterpret_cast<float4*>(g.state + (long long)bh * kDD + e) = hc;
+  *reinterpret_cast<float4*>(g.state + (long long)bh * kNP + e) = hc;
 }
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -318,7 +372,7 @@ __device__ __forceinline__ float bf16_round(float v) {
 __device__ __forceinline__ void scale_rows(uint32_t tile, const float* s, int Qt) {
   for (int i = threadIdx.x; i < Qt * 8; i += kThreads) {
     const int r = i >> 3;
-    const uint32_t addr = tile + swz(r, i & 7);
+    const uint32_t addr = tile + swz<kP>(r, i & 7);
     uint32_t v[4];
     asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3]) : "r"(addr) : "memory");
@@ -336,14 +390,16 @@ __device__ __forceinline__ void scale_rows(uint32_t tile, const float* s, int Qt
 // ---- 3. y ---------------------------------------------------------------------
 // Grid (nc, head tiles, B).  Warp w owns the 16 rows of row tile w and all 64
 // columns p of y.
-template <bool kBf16Decay>
-__global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g) {
+template <int kN, bool kBf16Decay>
+__global__ void __launch_bounds__(kThreads, Dims<kN>::kMinBlocks)
+    ssd_sm90_chunk_scan(const Args g) {
+  using D = Dims<kN>;
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t sC = smem_u32(smem);
-  const uint32_t sB = sC + kTileBytes;          // after G: h_in's two terms
-  const uint32_t sHhi = sB, sHlo = sB + kHTileBytes;
-  const uint32_t sX = sB + kTileBytes;          // two buffers
-  float* sG = reinterpret_cast<float*>(smem + 4 * kTileBytes);   // [kGTiles][2][32][4]
+  const uint32_t sB = sC + D::kBCTileBytes;     // after G: h_in's two terms
+  const uint32_t sHhi = sB, sHlo = sB + D::kHTileBytes;
+  const uint32_t sX = sB + D::kBCTileBytes;     // two buffers
+  float* sG = reinterpret_cast<float*>(smem + 2 * D::kBCTileBytes + 2 * kTileBytes);
   float* sDt = sG + kGTiles * 256;                               // [kHT][kMaxQ]
   float* sL = sDt + kHT * kMaxQ;                                 // [kHT][kMaxQ]
 
@@ -353,21 +409,21 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, t4 = lane & 3, mat = lane >> 3;
   const __nv_bfloat16* xs = g.x + b * g.xsb + s0 * g.xss;
-  const float* hin = g.scratch + ((long long)b * g.nc + c) * g.H * kDD;
+  const float* hin = g.scratch + ((long long)b * g.nc + c) * g.H * D::kNP;
 
-  load_tile(sC, g.Cm + b * g.csb + s0 * g.css, g.css, rows, Qt);
-  load_tile(sB, g.Bm + b * g.bsb + s0 * g.bss, g.bss, rows, Qt);
+  load_tile<kN>(sC, group_rows(g.Cm, g.csb, g.css, g.csg, g, b, s0, h0), g.css, rows, Qt);
+  load_tile<kN>(sB, group_rows(g.Bm, g.bsb, g.bss, g.bsg, g, b, s0, h0), g.bss, rows, Qt);
   cp_async_commit();
-  load_tile(sX, xs + h0 * g.xsh, g.xss, rows, Qt);
+  load_tile<kP>(sX, xs + h0 * g.xsh, g.xss, rows, Qt);
   cp_async_commit();
-  // h_in of the first head into registers: this thread's 16 of its 4096.
+  // h_in of the first head into registers: this thread's 4 kHQ of its N P.
   // The first chunk starts from h = 0 and skips C . h_in.
   const bool carry = c > 0;
-  float4 hreg[4] = {};
+  float4 hreg[D::kHQ] = {};
   if (carry) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      hreg[q] = reinterpret_cast<const float4*>(hin + h0 * kDD)[threadIdx.x + kThreads * q];
+    for (int q = 0; q < D::kHQ; ++q)
+      hreg[q] = reinterpret_cast<const float4*>(hin + h0 * D::kNP)[threadIdx.x + kThreads * q];
   }
   load_dt(sDt, g, b, s0, rows, h0);
   cp_async_wait<1>();
@@ -381,10 +437,10 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g)
     const int tj = t - ti * (ti + 1) / 2;
     float acc[2][4] = {};
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
+    for (int kk = 0; kk < kN / 16; ++kk) {
       uint32_t ca[4], bb[4];
-      ldsm_x4(ca, sC + swz(16 * ti + (lane & 7) + ((mat & 1) << 3), 2 * kk + (mat >> 1)));
-      ldsm_x4(bb, sB + swz(16 * tj + (lane & 7) + ((mat >> 1) << 3), 2 * kk + (mat & 1)));
+      ldsm_x4(ca, sC + swz<kN>(16 * ti + (lane & 7) + ((mat & 1) << 3), 2 * kk + (mat >> 1)));
+      ldsm_x4(bb, sB + swz<kN>(16 * tj + (lane & 7) + ((mat >> 1) << 3), 2 * kk + (mat & 1)));
       mma(acc[0], ca, bb[0], bb[1]);
       mma(acc[1], ca, bb[2], bb[3]);
     }
@@ -409,9 +465,9 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g)
   for (int k = 0; k < nh; ++k) {
     // h_in of head k as two bf16 terms, [n][p] in swizzled tiles
 #pragma unroll
-    for (int q = 0; q < 4 && carry; ++q) {
+    for (int q = 0; q < D::kHQ && carry; ++q) {
       const int f = threadIdx.x + kThreads * q;  // float4 index: n = f / 16, p = 4 (f % 16)
-      const uint32_t off = swz(f >> 4, (f & 15) >> 1) + (f & 1) * 8;
+      const uint32_t off = swz<kP>(f >> 4, (f & 15) >> 1) + (f & 1) * 8;
       uint2 hi, lo;
       split2(hreg[q].x, hreg[q].y, hi.x, lo.x);
       split2(hreg[q].z, hreg[q].w, hi.y, lo.y);
@@ -422,9 +478,10 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g)
     }
     if (k + 1 < nh) {
 #pragma unroll
-      for (int q = 0; q < 4 && carry; ++q)
-        hreg[q] = reinterpret_cast<const float4*>(hin + (h0 + k + 1) * kDD)[threadIdx.x + kThreads * q];
-      load_tile(sX + ((k + 1) & 1) * kTileBytes, xs + (h0 + k + 1) * g.xsh, g.xss, rows, Qt);
+      for (int q = 0; q < D::kHQ && carry; ++q)
+        hreg[q] = reinterpret_cast<const float4*>(hin + (h0 + k + 1) * D::kNP)[threadIdx.x + kThreads * q];
+      load_tile<kP>(sX + ((k + 1) & 1) * kTileBytes, xs + (h0 + k + 1) * g.xsh, g.xss, rows,
+                    Qt);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -443,15 +500,15 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g)
       float acc[8][4] = {};
       // exp(L_i) * (C_i . h_in), h_in as hi + lo
 #pragma unroll
-      for (int kk = 0; kk < kD / 16 && carry; ++kk) {
+      for (int kk = 0; kk < kN / 16 && carry; ++kk) {
         uint32_t ca[4];
-        ldsm_x4(ca, sC + swz(16 * ti + (lane & 7) + ((mat & 1) << 3), 2 * kk + (mat >> 1)));
+        ldsm_x4(ca, sC + swz<kN>(16 * ti + (lane & 7) + ((mat & 1) << 3), 2 * kk + (mat >> 1)));
         const int hr = 16 * kk + (lane & 7) + ((mat & 1) << 3);
 #pragma unroll
         for (int pp = 0; pp < 4; ++pp) {
           uint32_t bh[4], bl[4];
-          ldsm_x4_t(bh, sHhi + swz(hr, 2 * pp + (mat >> 1)));
-          ldsm_x4_t(bl, sHlo + swz(hr, 2 * pp + (mat >> 1)));
+          ldsm_x4_t(bh, sHhi + swz<kP>(hr, 2 * pp + (mat >> 1)));
+          ldsm_x4_t(bl, sHlo + swz<kP>(hr, 2 * pp + (mat >> 1)));
           mma(acc[2 * pp], ca, bh[0], bh[1]);
           mma(acc[2 * pp], ca, bl[0], bl[1]);
           mma(acc[2 * pp + 1], ca, bh[2], bh[3]);
@@ -500,7 +557,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g)
 #pragma unroll
         for (int pp = 0; pp < 4; ++pp) {
           uint32_t xb[4];
-          ldsm_x4_t(xb, sXk + swz(xr, 2 * pp + (mat >> 1)));
+          ldsm_x4_t(xb, sXk + swz<kP>(xr, 2 * pp + (mat >> 1)));
           mma(acc[2 * pp], ahi, xb[0], xb[1]);
           mma(acc[2 * pp], alo, xb[0], xb[1]);
           mma(acc[2 * pp + 1], ahi, xb[2], xb[3]);
@@ -508,8 +565,8 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g)
         }
       }
       // y rows < rows, as bf16 pairs
-      __nv_bfloat16* yh = g.y + ((long long)b * g.S + s0) * g.H * kD + (long long)(h0 + k) * kD;
-      const long long ys = (long long)g.H * kD;
+      __nv_bfloat16* yh = g.y + ((long long)b * g.S + s0) * g.H * kP + (long long)(h0 + k) * kP;
+      const long long ys = (long long)g.H * kP;
 #pragma unroll
       for (int n8 = 0; n8 < 8; ++n8) {
         const int p = 8 * n8 + 2 * t4;
@@ -525,60 +582,75 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_sm90_chunk_scan(const Args g)
   }
 }
 
-constexpr int kSmemState = 3 * kTileBytes + 2 * kHT * kMaxQ * 4;
-constexpr int kSmemScan = 4 * kTileBytes + kGTiles * 256 * 4 + 2 * kHT * kMaxQ * 4;
+template <int kN>
+constexpr int kSmemState = Dims<kN>::kBCTileBytes + 2 * kTileBytes + 2 * kHT * kMaxQ * 4;
+template <int kN>
+constexpr int kSmemScan =
+    2 * Dims<kN>::kBCTileBytes + 2 * kTileBytes + kGTiles * 256 * 4 + 2 * kHT * kMaxQ * 4;
 
-template <bool kBf16Decay>
+template <int kN, bool kBf16Decay>
 cudaError_t launch_scan(const Args& g, dim3 grid, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(ssd_sm90_chunk_scan<kBf16Decay>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemScan);
+  cudaError_t e = cudaFuncSetAttribute(ssd_sm90_chunk_scan<kN, kBf16Decay>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kSmemScan<kN>);
   if (e != cudaSuccess) return e;
-  ssd_sm90_chunk_scan<kBf16Decay><<<grid, kThreads, kSmemScan, s>>>(g);
+  ssd_sm90_chunk_scan<kN, kBf16Decay><<<grid, kThreads, kSmemScan<kN>, s>>>(g);
   return cudaGetLastError();
+}
+
+template <int kN>
+cudaError_t launch(const Args& g, int B, int bf16_decay, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(ssd_sm90_chunk_state<kN>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kSmemState<kN>);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(g.nc, (g.H + kHT - 1) / kHT, B);
+  ssd_sm90_chunk_state<kN><<<grid, kThreads, kSmemState<kN>, s>>>(g);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const int n_threads = B * g.H * (Dims<kN>::kNP / 4);
+  ssd_sm90_state_pass<kN><<<(n_threads + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      g, n_threads);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return bf16_decay ? launch_scan<kN, true>(g, grid, s) : launch_scan<kN, false>(g, grid, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [B,S,H,64], dt [B,S,H] fp32, Bm and Cm [B,S,64] bf16, with unit stride on
-// the last dim and the given element strides on the others (of x, Bm and Cm
-// multiples of 8, their bases 16-byte aligned), a [H] fp32; y contiguous
-// [B,S,H,64] bf16, state contiguous [B,H,64,64] fp32; scratch [B,nc,H,64,64]
-// and decay [B,nc,H] fp32, nc = ceil(S / Q); chunks of Q <= 128 steps;
-// bf16_decay selects the bf16 decay of the intra-chunk term, else fp32.
-// Launches three kernels on `stream` and returns cudaGetLastError() without
-// synchronising.
+// x [B,S,H,64], dt [B,S,H] fp32, Bm and Cm [B,S,G,N] bf16 with N 64 or 128,
+// with unit stride on the last dim and the given element strides on the
+// others (of x, Bm and Cm multiples of 8, their bases 16-byte aligned), a [H]
+// fp32; head h reads group h / (H / G), and H / G must be a multiple of 8
+// unless G is 1; y contiguous [B,S,H,64] bf16, state contiguous [B,H,N,64]
+// fp32; scratch [B,nc,H,N,64] and decay [B,nc,H] fp32, nc = ceil(S / Q);
+// chunks of Q <= 128 steps; bf16_decay selects the bf16 decay of the
+// intra-chunk term, else fp32.  Launches three kernels on `stream` and
+// returns cudaGetLastError() without synchronising.
 int ssd_scan_sm90_launch(const void* x, const void* dt, const void* Bm, const void* Cm,
                          const void* a, void* y, void* state, void* scratch, void* decay,
-                         int B, int S, int H, int Q, long long xsb, long long xss,
-                         long long xsh, long long dsb, long long dss, long long dsh,
-                         long long bsb, long long bss, long long csb, long long css,
-                         int bf16_decay, void* stream) {
+                         int B, int S, int H, int N, int G, int Q, long long xsb,
+                         long long xss, long long xsh, long long dsb, long long dss,
+                         long long dsh, long long bsb, long long bss, long long bsg,
+                         long long csb, long long css, long long csg, int bf16_decay,
+                         void* stream) {
   auto bad_stride = [](long long stride, int size) { return size > 1 && stride % 8 != 0; };
   if (B <= 0 || S <= 0 || H <= 0 || Q <= 0 || Q > kMaxQ || Q > S || B > 65535 ||
+      (N != 64 && N != 128) || G <= 0 || H % G || (G > 1 && (H / G) % kHT) ||
       (H + kHT - 1) / kHT > 65535 || ((uintptr_t)x | (uintptr_t)Bm | (uintptr_t)Cm) % 16 ||
       bad_stride(xsb, B) || bad_stride(xss, S) || bad_stride(xsh, H) ||
-      bad_stride(bsb, B) || bad_stride(bss, S) || bad_stride(csb, B) || bad_stride(css, S))
+      bad_stride(bsb, B) || bad_stride(bss, S) || bad_stride(bsg, G) ||
+      bad_stride(csb, B) || bad_stride(css, S) || bad_stride(csg, G))
     return (int)cudaErrorInvalidValue;
   const int nc = (S + Q - 1) / Q;
   const Args g{static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
                static_cast<const __nv_bfloat16*>(Bm), static_cast<const __nv_bfloat16*>(Cm),
                static_cast<const float*>(a), static_cast<__nv_bfloat16*>(y),
                static_cast<float*>(state), static_cast<float*>(scratch),
-               static_cast<float*>(decay), S, H, Q, (Q + 15) / 16 * 16, nc,
-               xsb, xss, xsh, dsb, dss, dsh, bsb, bss, csb, css};
+               static_cast<float*>(decay), S, H, Q, (Q + 15) / 16 * 16, nc, H / G,
+               xsb, xss, xsh, dsb, dss, dsh, bsb, bss, bsg, csb, css, csg};
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaFuncSetAttribute(ssd_sm90_chunk_state,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemState);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(nc, (H + kHT - 1) / kHT, B);
-  ssd_sm90_chunk_state<<<grid, kThreads, kSmemState, s>>>(g);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const int n_threads = B * H * (kDD / 4);
-  ssd_sm90_state_pass<<<(n_threads + kThreads - 1) / kThreads, kThreads, 0, s>>>(g, n_threads);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return (int)(bf16_decay ? launch_scan<true>(g, grid, s) : launch_scan<false>(g, grid, s));
+  return (int)(N == 64 ? launch<64>(g, B, bf16_decay, s) : launch<128>(g, B, bf16_decay, s));
 }
 
 const char* ssd_scan_sm90_error_string(int err) {

@@ -10,8 +10,10 @@
 // state, in place:
 //
 //   decay     = exp(dt[b,h] * a[h])
-//   h'[n,p]   = h[n,p] * decay + B[b,n] * (dt[b,h] * x[b,h,p])
-//   y[b,h,p]  = sum_n C[b,n] * h'[n,p] + d_skip[h] * x[b,h,p]
+//   h'[n,p]   = h[n,p] * decay + B[b,g,n] * (dt[b,h] * x[b,h,p])
+//   y[b,h,p]  = sum_n C[b,g,n] * h'[n,p] + d_skip[h] * x[b,h,p]
+//
+// with g = h / (H / G) the head's group of B and C (G = 1: one shared by all)
 //
 // The state update rounds each product and the sum apart (no FMA), as the
 // plain version's tensor ops do, so the new state is theirs; y is summed in
@@ -59,17 +61,18 @@ struct Args {
   const void* x;        // [B, H, P] in T
   const float* dt;      // [B, H]
   const float* a;       // [H], contiguous
-  const float* Bm;      // [B, N]
-  const float* Cm;      // [B, N]
+  const float* Bm;      // [B, G, N]
+  const float* Cm;      // [B, G, N]
   const float* d_skip;  // [H], contiguous
   void* y;              // contiguous [B, H, P] in T
   int B, H, N, P;
   int split;            // blocks a (b, h): each a slice of P / split columns
   int tn;               // threads along N
+  int hpg;              // heads a group: head h reads group h / hpg
   long long xsb, xsh, xsp;  // element strides of x's B, H and P dims
   long long dsb, dsh;       // of dt
-  long long bsb, bsn;       // of Bm
-  long long csb, csn;       // of Cm
+  long long bsb, bsg, bsn;  // of Bm
+  long long csb, csg, csn;  // of Cm
 };
 
 __device__ __forceinline__ float update(float h, float decay, float b, float dtx) {
@@ -95,8 +98,8 @@ __global__ void __launch_bounds__(kThreads) ssd_step_kernel(Args g) {
     x[i] = to_float<T>(xr[i * g.xsp]);
     dtx[i] = __fmul_rn(dt, x[i]);
   }
-  const float* Bm = g.Bm + b * g.bsb;
-  const float* Cm = g.Cm + b * g.csb;
+  const float* Bm = g.Bm + b * g.bsb + (h / g.hpg) * g.bsg;
+  const float* Cm = g.Cm + b * g.csb + (h / g.hpg) * g.csg;
   const int row = g.P / 4;  // float4s a state row
   float4* st = reinterpret_cast<float4*>(g.state + (size_t)bh * g.N * g.P + p);
 
@@ -148,25 +151,28 @@ __global__ void __launch_bounds__(kThreads) ssd_step_kernel(Args g) {
 extern "C" {
 
 // state contiguous [B,H,N,P] fp32, updated in place; x [B,H,P], dt [B,H],
-// Bm and Cm [B,N] fp32, each with the given element strides; a and d_skip
+// Bm and Cm [B,G,N] fp32 (head h reads group h / (H / G)), each with the
+// given element strides; a and d_skip
 // contiguous [H] fp32; y contiguous [B,H,P].  is_bf16 selects bf16 x and y, else
 // fp32.  P must be a multiple of 4 * split, with P / split / 4 * tn threads a
 // block, at most 256.  Launches on `stream` and returns cudaGetLastError()
 // without synchronising.
 int ssd_step_launch(void* state, const void* x, const void* dt, const void* a,
                     const void* Bm, const void* Cm, const void* d_skip, void* y, int B,
-                    int H, int N, int P, int split, int tn, long long xsb, long long xsh,
-                    long long xsp, long long dsb, long long dsh, long long bsb,
-                    long long bsn, long long csb, long long csn, int is_bf16,
-                    void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0 || P <= 0 || split <= 0 || tn <= 0 || P % (4 * split))
+                    int H, int N, int P, int G, int split, int tn, long long xsb,
+                    long long xsh, long long xsp, long long dsb, long long dsh,
+                    long long bsb, long long bsg, long long bsn, long long csb,
+                    long long csg, long long csn, int is_bf16, void* stream) {
+  if (B <= 0 || H <= 0 || N <= 0 || P <= 0 || G <= 0 || H % G || split <= 0 || tn <= 0 ||
+      P % (4 * split))
     return (int)cudaErrorInvalidValue;
   const int threads = P / split / 4 * tn;
   if (threads > kThreads) return (int)cudaErrorInvalidValue;
   Args g{static_cast<float*>(state), x, static_cast<const float*>(dt),
          static_cast<const float*>(a), static_cast<const float*>(Bm),
          static_cast<const float*>(Cm), static_cast<const float*>(d_skip), y,
-         B, H, N, P, split, tn, xsb, xsh, xsp, dsb, dsh, bsb, bsn, csb, csn};
+         B, H, N, P, split, tn, H / G, xsb, xsh, xsp, dsb, dsh, bsb, bsg, bsn,
+         csb, csg, csn};
   const dim3 grid((unsigned)((long long)B * H * split));
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)

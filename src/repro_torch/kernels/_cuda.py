@@ -55,20 +55,20 @@ _SIGNATURES = {
     ],
     "ssd_scan": [
         ("ssd_scan_launch", _I,
-         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P]),
+         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P]),
         ("ssd_scan_error_string", ctypes.c_char_p, [_I]),
     ],
     "ssd_scan_sm90": [
         ("ssd_scan_sm90_launch", _I,
-         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P]),
+         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P]),
         ("ssd_scan_sm90_error_string", ctypes.c_char_p, [_I]),
     ],
     "ssd_step": [
         ("ssd_step_launch", _I,
-         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-          _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P]),
+         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P]),
         ("ssd_step_error_string", ctypes.c_char_p, [_I]),
     ],
 }

@@ -1,12 +1,14 @@
 """Wrappers of the two SSD scan kernels.
 
 ``ssd`` keeps the model's [B,S,H,P] layout at its interface, with B and C
-shared across heads as [B,S,N].  On CUDA tensors it launches one of two
-hand-written kernels, which ``route`` picks from dtype and shape alone,
-before any launch:
+shared across heads as [B,S,N], or in G groups as [B,S,G,N], head h reading
+group h // (H/G) (Mamba2's ``n_groups``; [B,S,N] is G = 1).  On CUDA tensors
+it launches one of two hand-written kernels, which ``route`` picks from dtype
+and shape alone, before any launch:
 
-- ``"sm90"`` (``csrc/ssd_scan_sm90.cu``): bf16 x, B and C with N = P = 64,
-  every Mamba2 prefill layer of zamba2-1.2b.  mma.sync bf16 tensor cores,
+- ``"sm90"`` (``csrc/ssd_scan_sm90.cu``): bf16 x, B and C with P = 64 and
+  N = 64 (every Mamba2 prefill layer of zamba2-1.2b) or N = 128 (Nemotron-H's,
+  G = 8), H/G a multiple of 8 where G > 1.  mma.sync bf16 tensor cores,
   split into three kernels over (batch, chunk, head tile); x, B and C must
   meet its 16-byte copies (``copy_check``), or the wrapper raises
   ``ValueError``.
@@ -32,7 +34,7 @@ each rank runs the route on its local shards (``kernels._mesh``): batch
 and heads may be split; B and C follow the batch split, a the heads'.
 
 ``ssd_step`` is the decode step's single-step recurrence on the fp32
-state [B,H,N,P], in place: on CUDA tensors it launches
+state [B,H,N,P], in place, B and C [B,N] or in groups [B,G,N]: on CUDA tensors it launches
 ``csrc/ssd_step.cu``, which reads and writes each state element once
 (``step_launches`` counts its calls); on CPU tensors it runs
 ``ssd_step_plain``.  On DTensors each rank runs the same on its local
@@ -58,7 +60,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 DECAY_DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232_448    # bytes of shared memory a block may opt into on sm_90
 MAX_CHUNK = 128         # the kernels' tiles hold at most 128 steps
-SM90_DIMS = (64,)       # N = P of the sm90 route
+SM90_P = 64             # P of the sm90 route
+SM90_N = (64, 128)      # its N, a template instance each
+SM90_HEADS = 8          # heads a block of the sm90 route: H/G a multiple where G > 1
 # each route's plain version: the arguments of ssd_scan_torch
 PLAIN_ARGS = {"sm90": {"split": True}, "scalar": {}}
 STEP_THREADS = 256      # at most, a block of ssd_step.cu
@@ -73,12 +77,24 @@ def smem_bytes(Q: int, N: int, P: int) -> int:
     return 4 * (N * P + Q * P + 2 * Q * (N + 1) + Q * Q + 4 * Q)
 
 
+def groups(Bm) -> int:
+    """G of the scan's B or C: [B,S,G,N]; 1 for the shared [B,S,N]."""
+    return Bm.shape[2] if Bm.dim() == 4 else 1
+
+
+def _grouped(Bm):
+    """B or C as [B,S,G,N] (a view; G = 1 for [B,S,N])."""
+    return Bm if Bm.dim() == 4 else Bm[:, :, None, :]
+
+
 def _check(x, dt, Bm, Cm, a) -> None:
-    if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 3 or Cm.dim() != 3 or a.dim() != 1:
-        raise ValueError("ssd: x must be [B,S,H,P], dt [B,S,H], Bm and Cm [B,S,N], a [H]")
+    if x.dim() != 4 or dt.dim() != 3 or Bm.dim() not in (3, 4) or Cm.dim() != Bm.dim() \
+            or a.dim() != 1:
+        raise ValueError("ssd: x must be [B,S,H,P], dt [B,S,H], Bm and Cm [B,S,N] or "
+                         "[B,S,G,N], a [H]")
     B, S, H, P = x.shape
     if dt.shape != (B, S, H) or Bm.shape[:2] != (B, S) or Cm.shape != Bm.shape \
-            or a.shape != (H,):
+            or a.shape != (H,) or H % groups(Bm):
         raise ValueError(f"ssd: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, Bm "
                          f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)}, a {tuple(a.shape)} "
                          "do not agree")
@@ -92,11 +108,14 @@ def _check(x, dt, Bm, Cm, a) -> None:
 
 
 def route(x, Bm) -> str:
-    """The kernel that ``ssd`` launches for x [B,S,H,P] and Bm [B,S,N] on
-    CUDA, from dtype and shape alone: ``"sm90"`` for bf16 with N = P = 64,
-    ``"scalar"`` for everything else."""
+    """The kernel that ``ssd`` launches for x [B,S,H,P] and Bm [B,S,N] or
+    [B,S,G,N] on CUDA, from dtype and shape alone: ``"sm90"`` for bf16 with
+    P = 64 and N in ``SM90_N``, its G groups each of a multiple of
+    ``SM90_HEADS`` heads where G > 1; ``"scalar"`` for everything else."""
+    G = groups(Bm)
     if x.dtype == torch.bfloat16 and Bm.dtype == torch.bfloat16 \
-            and x.shape[-1] in SM90_DIMS and Bm.shape[-1] == x.shape[-1]:
+            and x.shape[-1] == SM90_P and Bm.shape[-1] in SM90_N \
+            and (G == 1 or x.shape[2] // G % SM90_HEADS == 0):
         return "sm90"
     return "scalar"
 
@@ -154,14 +173,17 @@ def ssd_sm90(x, dt, Bm, Cm, a, chunk: int = 128,
     if x.device.type != "cuda":
         raise ValueError(f"ssd sm90: no kernel for device {x.device}")
     if route(x, Bm) != "sm90":
-        raise ValueError(f"ssd sm90: takes bf16 with N = P in {SM90_DIMS}, not "
-                         f"{x.dtype} with P {x.shape[-1]}, N {Bm.shape[-1]}")
+        raise ValueError(f"ssd sm90: takes bf16 with P {SM90_P}, N in {SM90_N} and groups "
+                         f"of a multiple of {SM90_HEADS} heads, not {x.dtype} with P "
+                         f"{x.shape[-1]}, N {Bm.shape[-1]}, {x.shape[2]} heads in "
+                         f"{groups(Bm)} groups")
     flag = _bf16_decay(decay_dtype)
     copy_check(x, Bm, Cm)
     if not a.is_contiguous():
         raise ValueError("ssd sm90: a must be contiguous")
     B, S, H, P = x.shape
-    N = Bm.shape[-1]
+    N, G = Bm.shape[-1], groups(Bm)
+    Bg, Cg = _grouped(Bm), _grouped(Cm)
     Q = _chunk(chunk, S)
     nc = -(-S // Q)
     y = torch.empty(B, S, H, P, dtype=x.dtype, device=x.device)
@@ -173,10 +195,9 @@ def ssd_sm90(x, dt, Bm, Cm, a, chunk: int = 128,
         err = lib.ssd_scan_sm90_launch(
             x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), a.data_ptr(),
             y.data_ptr(), state.data_ptr(), scratch.data_ptr(), decay.data_ptr(),
-            B, S, H, Q, x.stride(0), x.stride(1), x.stride(2),
-            dt.stride(0), dt.stride(1), dt.stride(2),
-            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1), flag,
-            torch.cuda.current_stream().cuda_stream)
+            B, S, H, N, G, Q, x.stride(0), x.stride(1), x.stride(2),
+            dt.stride(0), dt.stride(1), dt.stride(2), *Bg.stride()[:3], *Cg.stride()[:3],
+            flag, torch.cuda.current_stream().cuda_stream)
     _cuda.check(err, lib, "ssd_scan_sm90")
     launches += 1
     launches_sm90 += 1
@@ -192,12 +213,13 @@ def ssd_scalar(x, dt, Bm, Cm, a, chunk: int = 128,
         raise ValueError(f"ssd: no kernel for device {x.device}")
     flag = _bf16_decay(decay_dtype)
     B, S, H, P = x.shape
-    N = Bm.shape[-1]
+    N, G = Bm.shape[-1], groups(Bm)
+    Bg, Cg = _grouped(Bm), _grouped(Cm)
     Q = _chunk(chunk, S)
     if smem_bytes(Q, N, P) > SMEM_LIMIT:
         raise ValueError(f"ssd: chunk {Q}, N {N}, P {P} need {smem_bytes(Q, N, P)} "
                          f"bytes of shared memory, over the {SMEM_LIMIT} a block has")
-    if x.stride(3) != 1 or Bm.stride(2) != 1 or Cm.stride(2) != 1 or not a.is_contiguous():
+    if x.stride(3) != 1 or Bm.stride(-1) != 1 or Cm.stride(-1) != 1 or not a.is_contiguous():
         raise ValueError("ssd: the last dim of x, Bm and Cm, and a, must be contiguous")
     y = torch.empty(B, S, H, P, dtype=x.dtype, device=x.device)
     state = torch.empty(B, H, N, P, dtype=torch.float32, device=x.device)
@@ -205,10 +227,9 @@ def ssd_scalar(x, dt, Bm, Cm, a, chunk: int = 128,
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), a.data_ptr(),
-            y.data_ptr(), state.data_ptr(), B, S, H, P, N, Q,
+            y.data_ptr(), state.data_ptr(), B, S, H, P, N, G, Q,
             x.stride(0), x.stride(1), x.stride(2),
-            dt.stride(0), dt.stride(1), dt.stride(2),
-            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+            dt.stride(0), dt.stride(1), dt.stride(2), *Bg.stride()[:3], *Cg.stride()[:3],
             int(x.dtype == torch.bfloat16), flag, torch.cuda.current_stream().cuda_stream)
     _cuda.check(err, lib, "ssd_scan")
     launches += 1
@@ -245,7 +266,8 @@ class SSDFn(torch.autograd.Function):
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         a: torch.Tensor, chunk: int = 128, decay_dtype: torch.dtype = torch.float32):
-    """x [B,S,H,P], dt [B,S,H], Bm/Cm [B,S,N] (shared across heads), a [H]
+    """x [B,S,H,P], dt [B,S,H], Bm/Cm [B,S,N] (shared across heads) or
+    [B,S,G,N] (head h reads group h // (H/G)), a [H]
     → (y [B,S,H,P] in x's dtype, state [B,H,N,P] fp32), in chunks of
     min(chunk, S) steps.  ``decay_dtype`` (fp32 or bf16, both kernels) is
     the type of the intra-chunk decay (see ``ssd_scan_torch``).
@@ -267,6 +289,8 @@ def _ssd_on_mesh(x, dt, Bm, Cm, a, chunk, decay_dtype):
 
     _check(x, dt, Bm, Cm, a)
     base = _mesh.base_placements(x, "ssd")
+    if groups(Bm) > 1 and any(p.is_shard(2) for p in base):
+        raise ValueError("ssd on a mesh: B and C in groups take the heads whole")
     # B and C are shared by the heads, a by the batch: whole where those
     # are split, and their gradients partial there
     shared = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in base)
@@ -283,12 +307,14 @@ def _ssd_on_mesh(x, dt, Bm, Cm, a, chunk, decay_dtype):
 # ------------------------------------------------------------ decode step ----
 def _step_check(state, x, dt, a, Bm, Cm, d_skip) -> None:
     if state.dim() != 4 or x.dim() != 3 or dt.dim() != 2 or a.dim() != 1 \
-            or Bm.dim() != 2 or Cm.dim() != 2 or d_skip.dim() != 1:
+            or Bm.dim() not in (2, 3) or Cm.dim() != Bm.dim() or d_skip.dim() != 1:
         raise ValueError("ssd_step: state must be [B,H,N,P], x [B,H,P], dt [B,H], a and "
-                         "d_skip [H], Bm and Cm [B,N]")
+                         "d_skip [H], Bm and Cm [B,N] or [B,G,N]")
     B, H, N, P = state.shape
-    if x.shape != (B, H, P) or dt.shape != (B, H) or a.shape != (H,) \
-            or Bm.shape != (B, N) or Cm.shape != (B, N) or d_skip.shape != (H,):
+    G = _step_groups(Bm)
+    if x.shape != (B, H, P) or dt.shape != (B, H) or a.shape != (H,) or H % G \
+            or Bm.shape != (B, *Bm.shape[1:-1], N) or Cm.shape != Bm.shape \
+            or d_skip.shape != (H,):
         raise ValueError(f"ssd_step: shapes state {tuple(state.shape)}, x {tuple(x.shape)}, "
                          f"dt {tuple(dt.shape)}, a {tuple(a.shape)}, Bm {tuple(Bm.shape)}, "
                          f"Cm {tuple(Cm.shape)}, d_skip {tuple(d_skip.shape)} do not agree")
@@ -301,6 +327,11 @@ def _step_check(state, x, dt, a, Bm, Cm, d_skip) -> None:
         raise ValueError("ssd_step: state, dt, a, Bm and Cm must be float32")
     if any(t.device != state.device for t in (x, dt, a, Bm, Cm, d_skip)):
         raise ValueError("ssd_step: all inputs must be on one device")
+
+
+def _step_groups(Bm) -> int:
+    """G of the step's B or C: [B,G,N]; 1 for the shared [B,N]."""
+    return Bm.shape[1] if Bm.dim() == 3 else 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -322,13 +353,20 @@ def step_tile(B: int, H: int, N: int, P: int, sms: int):
 
 def ssd_step_plain(state, x, dt, a, Bm, Cm, d_skip):
     """The step in tensor ops: the same function as ``ssd_step``, writing
-    the new state into ``state``."""
+    the new state into ``state``.  Grouped B and C [B,G,N] are repeated to
+    the heads, [B,H,N]."""
     xh = x.float()
     decay = torch.exp(dt * a)[:, :, None, None]
     state.mul_(decay)
-    inflow = torch.einsum("bn,bhp->bhnp", Bm, dt[:, :, None] * xh)
-    state.add_(inflow)
-    y = torch.einsum("bn,bhnp->bhp", Cm, state)
+    if Bm.dim() == 3:
+        hpg = state.shape[1] // Bm.shape[1]
+        Bh, Ch = Bm.repeat_interleave(hpg, dim=1), Cm.repeat_interleave(hpg, dim=1)
+        state.add_(torch.einsum("bhn,bhp->bhnp", Bh, dt[:, :, None] * xh))
+        y = torch.einsum("bhn,bhnp->bhp", Ch, state)
+    else:
+        inflow = torch.einsum("bn,bhp->bhnp", Bm, dt[:, :, None] * xh)
+        state.add_(inflow)
+        y = torch.einsum("bn,bhnp->bhp", Cm, state)
     y = y + xh * d_skip.float()[None, :, None]
     return y.to(x.dtype)
 
@@ -341,13 +379,16 @@ def _ssd_step_cuda(state, x, dt, a, Bm, Cm, d_skip):
         raise ValueError("ssd_step: a must be contiguous")
     d_skip = d_skip.float().contiguous()
     B, H, N, P = state.shape
+    G = _step_groups(Bm)
+    if Bm.dim() == 2:
+        Bm, Cm = Bm[:, None, :], Cm[:, None, :]
     split, tn = step_tile(B, H, N, P, _sm_count(state.device))
     y = torch.empty(B, H, P, dtype=x.dtype, device=state.device)
     lib = _cuda.library("ssd_step")
     with torch.cuda.device(state.device):
         err = lib.ssd_step_launch(
             state.data_ptr(), x.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), d_skip.data_ptr(), y.data_ptr(), B, H, N, P, split, tn,
+            Cm.data_ptr(), d_skip.data_ptr(), y.data_ptr(), B, H, N, P, G, split, tn,
             *x.stride(), *dt.stride(), *Bm.stride(), *Cm.stride(),
             int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
@@ -361,7 +402,8 @@ def ssd_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor, a: torch.Te
     """One step of the recurrence: state [B,H,N,P] fp32, updated in place to
     exp(dt·a)·state + Bm ⊗ (dt·x); → y [B,H,P] in x's dtype, Cm·state + d_skip·x.
     x [B,H,P] is fp32 or bf16, d_skip [H] of any float dtype; dt [B,H], a [H],
-    Bm and Cm [B,N] are fp32.  The kernel on CUDA tensors (no fallback),
+    Bm and Cm [B,N] (shared) or [B,G,N] (head h reads group h // (H/G)) are
+    fp32.  The kernel on CUDA tensors (no fallback),
     ``ssd_step_plain`` on CPU tensors; on DTensors, either on the local
     shards.  A shape the kernel does not take raises ``ValueError`` on
     every device."""
@@ -386,6 +428,8 @@ def _ssd_step_on_mesh(state, x, dt, a, Bm, Cm, d_skip):
     if not all(p.is_replicate() or p.is_shard(0) or p.is_shard(1) for p in st):
         raise ValueError(f"ssd_step on a mesh: state placements {st}; the step takes "
                          f"batch (dim 0) and heads (dim 1) split, the rest whole")
+    if _step_groups(Bm) > 1 and any(p.is_shard(1) for p in st):
+        raise ValueError("ssd_step on a mesh: B and C in groups take the heads whole")
     rows = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in st)
     heads = tuple(Shard(0) if p.is_shard(1) else Replicate() for p in st)
     return _mesh.run(ssd_step, (state, x, dt, a, Bm, Cm, d_skip),

@@ -2,7 +2,7 @@
 with ``split=True``, ``csrc/ssd_scan_sm90.cu``).
 
 Both take the model layout: x [B,S,H,P], dt [B,S,H] (> 0), B and C shared
-across heads as [B,S,N], a [H] (< 0); both return (y [B,S,H,P] in x's
+across heads as [B,S,N] or in groups as [B,S,G,N], a [H] (< 0); both return (y [B,S,H,P] in x's
 dtype, final state [B,H,N,P] in fp32).  Neither copies B or C per head.
 
 The recurrence is h_t = exp(a·dt_t)·h_{t-1} + dt_t·B_t⊗x_t, y_t = C_t·h_t.
@@ -52,7 +52,17 @@ def ssd_scan_torch(x, dt, Bm, Cm, a, chunk: int = 128,
     fp32; dt goes into x, not into M; L is summed in step order.  M = bf16(G)·bf16(exp) has at most 16
     significant bits, so its two bf16 terms hold it exactly and the split
     form differs from the unsplit one in the order of the sums alone.  The
-    state weights, the pass across chunks and exp(L_i) stay fp32."""
+    state weights, the pass across chunks and exp(L_i) stay fp32.
+
+    B and C in G groups, [B,S,G,N] (head h reads group h // (H/G)), run
+    group by group over the group's heads, as the kernels read them."""
+    if Bm.dim() == 4:
+        hpg = x.shape[2] // Bm.shape[2]
+        parts = [ssd_scan_torch(x[:, :, g * hpg:(g + 1) * hpg], dt[:, :, g * hpg:(g + 1) * hpg],
+                                Bm[:, :, g], Cm[:, :, g], a[g * hpg:(g + 1) * hpg], chunk,
+                                decay_dtype, split)
+                 for g in range(Bm.shape[2])]
+        return torch.cat([y for y, _ in parts], 2), torch.cat([h for _, h in parts], 1)
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -126,8 +136,16 @@ def ssd_scan_torch(x, dt, Bm, Cm, a, chunk: int = 128,
 
 def ssd_scan_recurrence(x, dt, Bm, Cm, a):
     """The time recurrence, one step at a time in fp32: the oracle, as
-    ``repro.kernels.ssd.ref.ssd_scan_ref`` is the JAX package's."""
+    ``repro.kernels.ssd.ref.ssd_scan_ref`` is the JAX package's.  Grouped B
+    and C [B,S,G,N] are repeated to the heads."""
     Bsz, S, H, P = x.shape
+    if Bm.dim() == 4:
+        hpg = H // Bm.shape[2]
+        ys, hs = zip(*(ssd_scan_recurrence(x[:, :, g * hpg:(g + 1) * hpg],
+                                           dt[:, :, g * hpg:(g + 1) * hpg], Bm[:, :, g],
+                                           Cm[:, :, g], a[g * hpg:(g + 1) * hpg])
+                       for g in range(Bm.shape[2])))
+        return torch.cat(ys, 2), torch.cat(hs, 1)
     N = Bm.shape[-1]
     f32 = torch.float32
     a = a.to(f32)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import argparse
 import time
 
-from ..configs import ARCHS, get_config
+from ..configs import ALL_ARCHS, get_config
 from ..core import KedaAutoscaler, Triggerflow
 from ..obs.trace import SpanCollector, Tracer
 from ..serving.engine import ServingEngine
@@ -23,7 +23,7 @@ from ..serving.engine import ServingEngine
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCHS, required=True)
+    ap.add_argument("--arch", choices=ALL_ARCHS, required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=4)

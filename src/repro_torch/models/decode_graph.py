@@ -23,8 +23,10 @@ no switch: parameters on a CUDA device and not DTensors (the mesh runs the
 step op by op), and a family in ``GRAPH_FAMILIES``.  Every family's step
 makes no shape from the data and reads nothing on the host at a tensor
 ``pos``; the list holds those a benchmark cell serves: ``dense`` and
-``hybrid``, whose attention is the dense family's ``gqa_decode``, and
-``mla_moe``, whose attention is the absorbed ``mla_decode``.  A decode
+``hybrid``, whose attention is the dense family's ``gqa_decode``,
+``mla_moe``, whose attention is the absorbed ``mla_decode``, and
+``nemotron_h``, whose Mamba2, MoE and NoPE ``gqa_decode`` blocks are the
+others'.  A decode
 step's MoE routes its T = B tokens into slots on the device: the capacity
 comes from T alone (C = T where dropless; the ragged path, which reads the
 experts' counts on the host, is the prefill's), so the step's shapes are
@@ -48,7 +50,7 @@ import torch
 
 from .layers import _is_dtensor
 
-GRAPH_FAMILIES = ("dense", "hybrid", "mla_moe")
+GRAPH_FAMILIES = ("dense", "hybrid", "mla_moe", "nemotron_h")
 MAX_GRAPHS = 4
 # steps on a side stream before the capture: what initialises itself
 # lazily (cuBLAS's handles and workspaces, kernels' modules) cannot be captured

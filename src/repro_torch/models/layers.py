@@ -534,10 +534,12 @@ def gqa_out(p: GQA, attn):
 
 def gqa_forward(p: GQA, x, cos, sin, causal=True, q_chunk=2048, kv_chunk=2048,
                 unroll=False):
-    """Full-sequence attention block → (out, (k, v)) with k after RoPE."""
+    """Full-sequence attention block → (out, (k, v)) with k after RoPE;
+    ``cos`` None: no position embedding (NoPE, Nemotron-H's)."""
     q, k, v = gqa_qkv(p, x)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     q = lsc(q, "batch", "seq", "heads", None)
     k = lsc(k, "batch", "seq", "kv_heads", None)
     attn = attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
@@ -550,13 +552,15 @@ def gqa_decode(p: GQA, x, cache_k, cache_v, pos, cos, sin):
     The caches are updated in place (the JAX package returns new arrays);
     they are returned too, as in the reference.  ``pos`` is an int, or a
     0-d int64 tensor on the device (a captured step), whose bound its
-    caller checks: here that would read it on the host."""
+    caller checks: here that would read it on the host.  ``cos`` None: no
+    position embedding."""
     if isinstance(pos, int) and pos >= cache_k.shape[1]:
         raise ValueError(f"decode position {pos} is past the cache length "
                          f"{cache_k.shape[1]}")
     q, k, v = gqa_qkv(p, x)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     write_slice(cache_k, pos, k)
     write_slice(cache_v, pos, v)
     out = attention_decode(q, cache_k, cache_v, pos + 1)
@@ -565,14 +569,22 @@ def gqa_decode(p: GQA, x, cache_k, cache_v, pos, cos, sin):
 
 # -- SwiGLU MLP -----------------------------------------------------------------------
 class MLP(nn.Module):
-    def __init__(self, gen, d_model: int, d_ff: int, device=None):
+    """SwiGLU (``wg``, ``wu``, ``wd``), or with ``act="relu2"`` the ungated
+    down(relu(up·x)²) of Nemotron-H's experts (``wu``, ``wd``; ``wg`` None)."""
+
+    def __init__(self, gen, d_model: int, d_ff: int, device=None, act: str = "swiglu"):
         super().__init__()
-        self.wg = make_param(gen, (d_model, d_ff), ("embed", "ffn"), d_model ** -0.5, device=device)
+        self.wg = None if act == "relu2" else make_param(
+            gen, (d_model, d_ff), ("embed", "ffn"), d_model ** -0.5, device=device)
         self.wu = make_param(gen, (d_model, d_ff), ("embed", "ffn"), d_model ** -0.5, device=device)
         self.wd = make_param(gen, (d_ff, d_model), ("ffn", "embed"), d_ff ** -0.5, device=device)
 
 
 def mlp_forward(p: MLP, x):
+    if p.wg is None:
+        u = einsum("bsd,df->bsf", x, p.wu.to(x.dtype))
+        h = lsc(torch.square(F.relu(u)), "batch", "seq", "ffn")
+        return einsum("bsf,fd->bsd", h, p.wd.to(x.dtype))
     g = einsum("bsd,df->bsf", x, p.wg.to(x.dtype))
     u = einsum("bsd,df->bsf", x, p.wu.to(x.dtype))
     h = lsc(F.silu(g) * u, "batch", "seq", "ffn")

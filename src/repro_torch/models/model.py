@@ -8,7 +8,13 @@ default (so the defaults compute the JAX package's function): RMSNorm's
 ``routed_scaling_factor``), YaRN (``rope_scaling``, MLA's), the dropless
 capacity (``capacity_factor=None``), one chip's share of the routed
 experts (``experts_held``) and pads that take no routed expert
-(``unrouted_pad``).  ``Model`` is an ``nn.Module`` for these families:
+(``unrouted_pad``); and Nemotron-H's, likewise off by default: the layer
+pattern (``layer_pattern``), Mamba2's groups, conv over [x, B, C] and gate
+before a grouped norm (``ssm_groups``, ``ssm_conv_bc``,
+``ssm_gate_norm_groups``), sigmoid routing with a correction bias
+(``router_scoring``), relu² experts (``expert_act``) and the shared
+expert's own width (``d_ff_shared``).  ``Model`` is an ``nn.Module`` for
+these families:
 
 dense   llama-style GQA transformer (granite-20b, deepseek-67b, yi-9b,
         llama3.2-3b)
@@ -25,6 +31,10 @@ hybrid  zamba2: a Mamba2 backbone (``models.ssm``) with one weight-shared
 xlstm   mLSTM blocks with an sLSTM block at every layer i with
         i % slstm_every == 1 (``models.xlstm``); attention-free, its decode
         state O(1) in the sequence length
+nemotron_h  Nemotron-H: blocks x + mixer(rmsnorm(x)) by ``layer_pattern``,
+        M a Mamba2 mixer, E the MoE (sigmoid-routed relu² experts and a
+        shared one), * GQA attention with no position embedding; no block
+        has an FFN beside its mixer
 
 The reference scans uniform stacks over params stacked on axis 0; here that
 axis is split into a ``ModuleList``, so ``layers.{i}.attn.wq`` is the
@@ -43,7 +53,7 @@ recurrent state into the cache it is given.  ``decode`` runs it op by op
 on the caller's cache with the recurrent states cloned, so the K/V land
 in the caller's tensors, the SSM, conv and xLSTM states come back new and
 a prefill cache can be decoded from more than once; on a CUDA device the
-dense, hybrid and mla_moe families' ``decode`` replays a CUDA graph of it
+dense, hybrid, mla_moe and nemotron_h families' ``decode`` replays a CUDA graph of it
 instead (``models.decode_graph``), which copies the cache it is given
 into its own and leaves that one as it was.
 """
@@ -71,7 +81,7 @@ from .common import make_param
 @dataclasses.dataclass
 class ModelConfig:
     arch: str
-    family: str                    # dense|moe|mla_moe|hybrid|xlstm|vlm|audio
+    family: str                    # dense|moe|mla_moe|hybrid|xlstm|vlm|audio|nemotron_h
     n_layers: int
     d_model: int
     n_heads: int
@@ -94,6 +104,9 @@ class ModelConfig:
     norm_topk_prob: bool = True
     routed_scaling_factor: float = 1.0
     experts_held: Optional[Tuple[int, int]] = None   # (first, count); None: all
+    router_scoring: str = "softmax"     # or "sigmoid" with a correction bias (moe.Rule)
+    expert_act: str = "swiglu"          # or "relu2": ungated experts
+    d_ff_shared: int = 0                # the shared experts' width; 0: d_ff_expert × n_shared
     # a token id: each row's leading run of it (the serving engine's left
     # pads, token 0) takes no routed expert in a full-sequence pass
     unrouted_pad: Optional[int] = None
@@ -109,7 +122,13 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_chunk: int = 128
     ssd_decay_dtype: Any = torch.float32
+    ssm_inner: int = 0             # Mamba2's heads × head dim; 0: ssm_expand × d_model
+    ssm_groups: int = 1            # Mamba2's n_groups of B and C
+    ssm_conv_bc: bool = False      # the conv over [x, B, C], not x alone
+    ssm_gate_norm_groups: bool = False   # y·silu(z), then RMSNorm over each group
     attn_every: int = 0            # zamba2: shared attn block cadence
+    # Nemotron-H: one block a character, M Mamba2, E MoE, * attention
+    layer_pattern: str = ""
     # xLSTM
     slstm_every: int = 0           # 0 = no sLSTM layers; else layers i%k==1
     mlstm_chunk: int = 128
@@ -145,12 +164,24 @@ class ModelConfig:
         if self.rope_scaling is not None and self.family != "mla_moe":
             raise ValueError(f"{self.arch}: rope_scaling (YaRN) is MLA's; the {self.family} "
                              f"family takes plain RoPE")
+        if self.family == "nemotron_h":
+            bad = set(self.layer_pattern) - set(PATTERN_KINDS)
+            if bad or len(self.layer_pattern) != self.n_layers:
+                raise ValueError(f"{self.arch}: layer_pattern {self.layer_pattern!r} must be "
+                                 f"{self.n_layers} blocks of {PATTERN_KINDS} (M Mamba2, E MoE, "
+                                 f"* attention)")
+        self.routing                     # the rule's own checks
 
     @property
     def routing(self) -> MOE.Rule:
         """The routing rule, as ``moe.route`` takes it."""
         return MOE.Rule(self.n_group, self.topk_group, self.norm_topk_prob,
-                        self.routed_scaling_factor)
+                        self.routed_scaling_factor, self.router_scoring)
+
+    @property
+    def ssm_d_inner(self) -> int:
+        """Mamba2's inner width, Di."""
+        return self.ssm_inner or self.ssm_expand * self.d_model
 
     @property
     def supports_long_context(self) -> bool:
@@ -200,12 +231,21 @@ class ModelConfig:
         if fam == "mla_moe":
             return (outer + norms + mla + mlp(self.d_ff_expert * 8)
                     + (self.n_layers - 1) * (norms + mla + moe))
-        di = self.ssm_expand * d
-        Hs, N = di // self.ssm_headdim, self.ssm_state
+        di = self.ssm_d_inner
+        Hs, GN = di // self.ssm_headdim, self.ssm_groups * self.ssm_state
+        conv = di + 2 * GN if self.ssm_conv_bc else di
         mamba = (d                                           # the layer's norm
                  + 3 * d * di                                # wz, wx, wo
-                 + 4 * di + di + di                          # conv_w, conv_b, out_norm
-                 + 2 * d * N + d * Hs + 3 * Hs)              # wB, wC, wdt, dt_bias, a_log, d_skip
+                 + 4 * conv + conv + di                      # conv_w, conv_b, out_norm
+                 + 2 * d * GN + d * Hs + 3 * Hs)             # wB, wC, wdt, dt_bias, a_log, d_skip
+        if fam == "nemotron_h":
+            f = 2 if self.expert_act == "relu2" else 3
+            shared = self.d_ff_shared or self.d_ff_expert * self.n_shared_experts
+            moe = (d + d * self.n_experts + held * f * d * self.d_ff_expert
+                   + (f * d * shared if self.n_shared_experts else 0)
+                   + (self.n_experts if self.router_scoring == "sigmoid" else 0))
+            kinds = {"M": mamba, "E": moe, "*": d + gqa}
+            return outer + sum(kinds[k] for k in self.layer_pattern)
         return (outer + norms + gqa + mlp(self.d_ff) + len(self.shared_sites()) * 2 * d * d
                 + self.n_layers * mamba)
 
@@ -215,14 +255,17 @@ class ModelConfig:
         total = self.param_count()
         if not self.n_experts:
             return total
-        per_expert = 3 * self.d_model * self.d_ff_expert
-        n_moe_layers = self.n_layers - self.moe_layer_start
+        per_expert = (2 if self.expert_act == "relu2" else 3) * self.d_model * self.d_ff_expert
+        n_moe_layers = (self.layer_pattern.count("E") if self.family == "nemotron_h"
+                        else self.n_layers - self.moe_layer_start)
         return total - per_expert * (self.n_experts - self.top_k) * n_moe_layers
 
 
 # the families whose layers are GQA attention with a K/V cache
 GQA_FAMILIES = ("dense", "vlm", "audio", "moe")
-PORTED_FAMILIES = GQA_FAMILIES + ("mla_moe", "hybrid", "xlstm")
+PORTED_FAMILIES = GQA_FAMILIES + ("mla_moe", "hybrid", "xlstm", "nemotron_h")
+# nemotron_h's blocks by their character in ``layer_pattern``
+PATTERN_KINDS = ("M", "E", "*")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -320,13 +363,34 @@ class Layer(nn.Module):
             self.moe = None
 
 
+def _mamba2(cfg: ModelConfig, gen: torch.Generator, device=None) -> SSM.Mamba2:
+    return SSM.Mamba2(gen, cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state,
+                      cfg.ssm_headdim, device=device, eps=cfg.rms_eps, n_groups=cfg.ssm_groups,
+                      conv_bc=cfg.ssm_conv_bc, gate_norm_groups=cfg.ssm_gate_norm_groups)
+
+
 class MambaLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device=None):
         super().__init__()
         self.norm = L.RMSNorm(cfg.d_model, device, cfg.rms_eps)
-        self.mamba = SSM.Mamba2(gen, cfg.d_model, cfg.ssm_expand * cfg.d_model,
-                                cfg.ssm_state, cfg.ssm_headdim, device=device,
-                                eps=cfg.rms_eps)
+        self.mamba = _mamba2(cfg, gen, device)
+
+
+class PatternLayer(nn.Module):
+    """A Nemotron-H block, x + mixer(norm(x)): ``mamba`` (M), ``moe`` (E)
+    or ``attn`` (*, GQA), the other two ``None``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, kind: str, device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.norm = L.RMSNorm(d, device, cfg.rms_eps)
+        self.mamba = _mamba2(cfg, gen, device) if kind == "M" else None
+        self.moe = MOE.MoE(gen, d, cfg.d_ff_expert, cfg.n_experts, cfg.n_shared_experts,
+                           device, held=cfg.experts_held, act=cfg.expert_act,
+                           score_bias=cfg.router_scoring == "sigmoid",
+                           d_ff_shared=cfg.d_ff_shared) if kind == "E" else None
+        self.attn = (L.GQA(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, device)
+                     if kind == "*" else None)
 
 
 class XLSTMLayer(nn.Module):
@@ -371,6 +435,9 @@ class Model(nn.Module):
         elif fam == "xlstm":
             self.layers = nn.ModuleList(XLSTMLayer(cfg, gen, cfg.is_slstm(i), device)
                                         for i in range(cfg.n_layers))
+        elif fam == "nemotron_h":
+            self.layers = nn.ModuleList(PatternLayer(cfg, gen, kind, device)
+                                        for kind in cfg.layer_pattern)
         else:
             # zamba2: one attention block whose weights every site shares, a
             # [2d, d] projection of concat(x, embeddings) per site
@@ -545,6 +612,8 @@ class Model(nn.Module):
             return x, aux_total
         if cfg.family == "xlstm":
             return self._xlstm_layers(x, cache), aux_total
+        if cfg.family == "nemotron_h":
+            return self._pattern_layers(x, cache, pads)
         x0 = x
         sites = cfg.shared_sites()
         for i, lp in enumerate(self.layers):
@@ -563,6 +632,48 @@ class Model(nn.Module):
                 L.write_slice(cache["ssm"][i], 0, state)
                 L.write_slice(cache["conv"][i], 0, conv)
                 x = x + out
+        return x, aux_total
+
+    def _pattern_block(self, lp: PatternLayer, x, pads=None):
+        """nemotron_h's block over the full sequence → (its output, to be
+        added to x; its state or K/V (None for E); the MoE's aux loss or
+        None)."""
+        cfg = self.cfg
+        h = _normed(lp.norm, x)
+        if lp.mamba is not None:
+            out, state = SSM.mamba2_forward(lp.mamba, h, cfg.ssm_chunk, return_state=True,
+                                            decay_dtype=cfg.ssd_decay_dtype)
+            return out, state, None
+        if lp.moe is not None:
+            out, aux = MOE.moe_forward(lp.moe, h, cfg.top_k, cfg.capacity_factor,
+                                       counts=self._moe_counts(x), rule=cfg.routing,
+                                       ragged=True, pads=pads)
+            return out, None, aux
+        out, kv = L.gqa_forward(lp.attn, h, None, None, q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk, unroll=cfg.unroll_attention)
+        return out, kv, None
+
+    def _pattern_layers(self, x, cache=None, pads=None):
+        """nemotron_h's blocks over the full sequence → (x, the summed aux
+        loss); with ``cache``, write each Mamba2 layer's final state and conv
+        window and each attention layer's K/V at [0, S)."""
+        aux_total = torch.zeros((), device=x.device)
+        m = a = 0
+        for lp in self.layers:
+            out, state, aux = _remat(self._pattern_block, self.cfg)(lp, x, pads)
+            if lp.mamba is not None:
+                if cache is not None:
+                    L.write_slice(cache["ssm"][m], 0, state[0])
+                    L.write_slice(cache["conv"][m], 0, state[1])
+                m += 1
+            elif lp.attn is not None:
+                if cache is not None:
+                    L.write_slice(cache["k"][a], 0, state[0])
+                    L.write_slice(cache["v"][a], 0, state[1])
+                a += 1
+            else:
+                aux_total = aux_total + aux
+            x = _residual(x, out)
         return x, aux_total
 
     def _xlstm_layers(self, x, cache=None):
@@ -636,14 +747,20 @@ class Model(nn.Module):
             axes = ("layers", "batch", "seq_kv", None)
             return {"ckv": ((cfg.n_layers, B, T, cfg.kv_lora), dt, axes),
                     "kr": ((cfg.n_layers, B, T, cfg.rope_head_dim), dt, axes)}
-        di = cfg.ssm_expand * cfg.d_model
+        di = cfg.ssm_d_inner
         H = di // cfg.ssm_headdim
-        kv = ((len(cfg.shared_sites()), B, T, cfg.n_kv_heads, cfg.head_dim), dt,
-              (None, "batch", "seq_kv", "kv_heads", None))
-        return {"ssm": ((cfg.n_layers, B, H, cfg.ssm_state, cfg.ssm_headdim), f32,
+        # the hybrid's K/V by shared-attention site, nemotron_h's by "*" block
+        pattern = cfg.family == "nemotron_h"
+        n_ssm = cfg.layer_pattern.count("M") if pattern else cfg.n_layers
+        n_kv = cfg.layer_pattern.count("*") if pattern else len(cfg.shared_sites())
+        kv = ((n_kv, B, T, cfg.n_kv_heads, cfg.head_dim), dt,
+              ("layers" if pattern else None, "batch", "seq_kv", "kv_heads", None))
+        conv = ((n_ssm, B, 3, di + 2 * cfg.ssm_groups * cfg.ssm_state), dt,
+                ("layers", "batch", None, None)) if cfg.ssm_conv_bc else \
+            ((n_ssm, B, 3, di), dt, ("layers", "batch", None, "ffn"))
+        return {"ssm": ((n_ssm, B, H, cfg.ssm_state, cfg.ssm_headdim), f32,
                         ("layers", "batch", None, None, None)),
-                "conv": ((cfg.n_layers, B, 3, di), dt, ("layers", "batch", None, "ffn")),
-                "k": kv, "v": kv}
+                "conv": conv, "k": kv, "v": kv}
 
     def init_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
         """Zeros of ``cache_layout`` on the parameters' device, ``pos`` 0.
@@ -732,6 +849,22 @@ class Model(nn.Module):
                     cache["C"][mi].copy_(C)
                     cache["n"][mi].copy_(n)
                     mi += 1
+                x = x + out
+            return self._unembed(x)[:, -1]
+        if cfg.family == "nemotron_h":
+            m = a = 0
+            for lp in self.layers:
+                h = lp.norm(x)
+                if lp.mamba is not None:
+                    out = SSM.mamba2_decode(lp.mamba, h, cache["ssm"][m], cache["conv"][m])[0]
+                    m += 1
+                elif lp.moe is not None:
+                    out, _ = MOE.moe_forward(lp.moe, h, cfg.top_k, cfg.capacity_factor,
+                                             counts=self._moe_counts(x), rule=cfg.routing)
+                else:
+                    out = L.gqa_decode(lp.attn, h, cache["k"][a], cache["v"][a], pos,
+                                       None, None)[0]
+                    a += 1
                 x = x + out
             return self._unembed(x)[:, -1]
         if cfg.family == "mla_moe":

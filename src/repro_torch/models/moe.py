@@ -54,7 +54,8 @@ by default, so the defaults compute the reference's function):
   computes every selected expert.  The caller says how: ``ragged`` (a
   full-sequence pass, the prefill's) reads the held experts' counts on
   the host, one read a layer, and runs each expert's products over its
-  own rows alone, in the slots' sorted order, so no row is padded (a
+  own rows alone, in the slots' sorted order (one grouped GEMM a
+  projection over all the experts' runs), so no row is padded (a
   padded [E, C, D] batch at C = the largest count would cost what the
   busiest expert holds times every expert).  On a card the read is
   queued before the shared experts' MLP, so the device computes that
@@ -68,6 +69,19 @@ by default, so the defaults compute the reference's function):
   token, and a batch's pads share one hidden state, so routed they would
   all follow one routing decision, which rounding can flip near a tie.
   They still pass through the shared experts.
+
+Nemotron-H's (DeepSeek-V3's ``noaux_tc`` rule, as ``NemotronHTopkRouter``
+has it), also off by default:
+
+- ``Rule.scoring="sigmoid"``: s = sigmoid(x·W_router) in fp32; the experts
+  are the top k of s + the layer's ``e_score_correction_bias`` [E] (fp32;
+  a stable sort, ties to the lower index), weighted by s alone, normalised
+  with + 1e-20 where ``norm_topk_prob``, times ``routed_scaling_factor``.
+  With ``n_group`` > 1 it raises: V3's group score (the sum of a group's
+  best two) is not built.
+- ``MoE``'s ``act="relu2"``: ungated experts, down(relu(up·x)²), holding
+  ``wu`` and ``wd`` alone; the shared expert likewise, of width
+  ``d_ff_shared``.
 
 ``moe_forward`` adds, where given ``counts`` (an int64 [4] on the device,
 the model's running sums; no host read), the slots routed (pads' left
@@ -95,21 +109,36 @@ class Rule:
     """How a token picks its experts (the module's doc): ``n_group`` 0 is
     greedy over every expert, else the ``topk_group`` best of ``n_group``
     groups; ``norm_topk_prob`` renormalises the k weights and
-    ``routed_scaling_factor`` multiplies them.  The defaults are the JAX
+    ``routed_scaling_factor`` multiplies them; ``scoring`` softmax, or
+    sigmoid chosen with a correction bias.  The defaults are the JAX
     package's rule."""
     n_group: int = 0
     topk_group: int = 0
     norm_topk_prob: bool = True
     routed_scaling_factor: float = 1.0
+    scoring: str = "softmax"       # or "sigmoid", with the layer's correction bias
+
+    def __post_init__(self):
+        if self.scoring not in ("softmax", "sigmoid"):
+            raise ValueError(f"routing scores {self.scoring!r}: softmax or sigmoid")
+        if self.scoring == "sigmoid" and self.n_group > 1:
+            raise ValueError("sigmoid routing over groups (the sum of a group's best two "
+                             "scores) is not built: n_group must be 0 or 1")
 
 
 class MoE(nn.Module):
     """The router over all ``n_experts``; the expert weights of ``held``
-    (first, count) only, all of them by default."""
+    (first, count) only, all of them by default.  ``act`` "swiglu" (wg, wu,
+    wd) or "relu2" (wu, wd); ``score_bias`` adds the sigmoid rule's
+    ``e_score_correction_bias`` [E]; ``d_ff_shared`` is the shared experts'
+    width, ``d_ff_expert * n_shared`` by default."""
 
     def __init__(self, gen, d_model: int, d_ff_expert: int, n_experts: int,
-                 n_shared: int = 0, device=None, held=None):
+                 n_shared: int = 0, device=None, held=None, act: str = "swiglu",
+                 score_bias: bool = False, d_ff_shared: int = 0):
         super().__init__()
+        if act not in ("swiglu", "relu2"):
+            raise ValueError(f"expert activation {act!r}: swiglu or relu2")
         if held is not None:
             first, count = held
             if not (0 <= first and 0 < count and first + count <= n_experts):
@@ -119,16 +148,21 @@ class MoE(nn.Module):
         n_held = n_experts if held is None else held[1]
         self.router = make_param(gen, (d_model, n_experts), ("embed", None), d_model ** -0.5,
                                  device=device)
-        self.wg = make_param(gen, (n_held, d_model, d_ff_expert),
-                             ("experts", "embed", "ffn"), d_model ** -0.5,
-                             device=device)
+        if score_bias:
+            self.e_score_correction_bias = make_param(gen, (n_experts,), (None,),
+                                                      init="zeros", device=device)
+        else:
+            self.e_score_correction_bias = None
+        self.wg = None if act == "relu2" else make_param(
+            gen, (n_held, d_model, d_ff_expert), ("experts", "embed", "ffn"), d_model ** -0.5,
+            device=device)
         self.wu = make_param(gen, (n_held, d_model, d_ff_expert),
                              ("experts", "embed", "ffn"), d_model ** -0.5,
                              device=device)
         self.wd = make_param(gen, (n_held, d_ff_expert, d_model),
                              ("experts", "ffn", "embed"), d_ff_expert ** -0.5,
                              device=device)
-        self.shared = (MLP(gen, d_model, d_ff_expert * n_shared, device)
+        self.shared = (MLP(gen, d_model, d_ff_shared or d_ff_expert * n_shared, device, act)
                        if n_shared > 0 else None)
 
 
@@ -182,31 +216,45 @@ class Routing:
 
 
 def route(router, xf, top_k: int, capacity_factor, rule: Rule = Rule(), held=None,
-          ragged: bool = False, pads=None) -> Routing:
+          ragged: bool = False, pads=None, bias=None) -> Routing:
     """xf [T,D] → the routing of its T·k token-slots and the Switch aux
     loss.  The router runs in fp32, the reference's default, which no
     caller of either package changes.  On a mesh the routing is computed
-    whole on every rank (``_route_on_mesh``); ``held``, ``pads`` and the
-    dropless capacity (``capacity_factor=None``) are off a mesh only.
-    Dropless, ``ragged`` leaves the held experts' counts on the device
-    for the caller to read; else C = T."""
-    probs = torch.softmax(matmul(xf.float(), router.float()), dim=-1)    # [T,E]
+    whole on every rank (``_route_on_mesh``); ``held``, ``pads``, the
+    dropless capacity (``capacity_factor=None``) and sigmoid scores are off
+    a mesh only.  Dropless, ``ragged`` leaves the held experts' counts on
+    the device for the caller to read; else C = T.  ``bias`` [E]: the
+    sigmoid rule's correction bias."""
+    logits = matmul(xf.float(), router.float())
+    if rule.scoring == "sigmoid":
+        probs = torch.sigmoid(logits)                                      # [T,E]
+    else:
+        probs = torch.softmax(logits, dim=-1)
     if _is_dtensor(probs):
-        if held is not None or capacity_factor is None or pads is not None:
-            raise ValueError("an MoE layer holding a share of the experts, dropless or "
-                             "leaving pads unrouted runs off a mesh only: the exchange "
-                             "between chips is not built")
+        if held is not None or capacity_factor is None or pads is not None \
+                or rule.scoring != "softmax":
+            raise ValueError("an MoE layer holding a share of the experts, dropless, "
+                             "leaving pads unrouted or scoring by sigmoid runs off a mesh "
+                             "only: the exchange between chips is not built")
         return _route_on_mesh(probs, top_k, capacity_factor, rule)
     T = xf.shape[0]
     cap = ((None if ragged else T) if capacity_factor is None
            else capacity(T, top_k, router.shape[-1], capacity_factor))
-    return Routing(*_route_probs(probs, top_k, cap, held, rule, pads))
+    return Routing(*_route_probs(probs, top_k, cap, held, rule, pads, bias))
 
 
-def _top_k(probs, top_k: int, rule: Rule = Rule()):
+def _top_k(probs, top_k: int, rule: Rule = Rule(), bias=None):
     """probs [T,E] → (top_p, top_e) [T,k], greedy over every expert or,
-    with ``rule.n_group``, over the ``topk_group`` best groups (see the
+    with ``rule.n_group``, over the ``topk_group`` best groups; sigmoid
+    scores are chosen by probs + ``bias`` and weighted by probs (see the
     module's doc)."""
+    if rule.scoring == "sigmoid":
+        choice = probs if bias is None else probs + bias.float()
+        top_e = torch.sort(choice, dim=-1, descending=True, stable=True)[1][:, :top_k]
+        top_p = probs.gather(1, top_e)
+        if rule.norm_topk_prob:
+            top_p = top_p / (top_p.sum(-1, keepdim=True) + 1e-20)
+        return top_p * rule.routed_scaling_factor, top_e
     scores = probs
     n_group, topk_group = rule.n_group, rule.topk_group
     if n_group:
@@ -224,14 +272,15 @@ def _top_k(probs, top_k: int, rule: Rule = Rule()):
     return top_p, top_e
 
 
-def _route_probs(probs, top_k: int, cap, held=None, rule: Rule = Rule(), pads=None):
+def _route_probs(probs, top_k: int, cap, held=None, rule: Rule = Rule(), pads=None,
+                 bias=None):
     """The integer work of the routing, from probs [T,E] → (top_e, kept,
     where, token_idx, gate, aux_loss, held slots, cap, counts): ``Routing``'s
     fields.  ``held`` (first, count) gives the experts held here, all by
     default; ``pads`` [T] the tokens that take no slot; ``cap`` None is
-    dropless over each expert's own rows."""
+    dropless over each expert's own rows; ``bias``: ``_top_k``'s."""
     T, E = probs.shape
-    top_p, top_e = _top_k(probs, top_k, rule)
+    top_p, top_e = _top_k(probs, top_k, rule, bias)
 
     # load-balancing auxiliary loss (Switch): E * sum_e f_e * p_e
     TK = T * top_k
@@ -418,19 +467,24 @@ def _read_behind(counts, work):
     return host.tolist(), out
 
 
-def _ragged_experts(p: MoE, xs, sizes):
-    """Each held expert's SwiGLU over its own rows of xs [N,D], which come
-    in runs of ``sizes`` by expert → [N,D] (one zero row where N = 0, for
-    the combine to read)."""
+def _ragged_experts(p: MoE, xs, sizes, counts):
+    """Each held expert's SwiGLU (or relu²) over its own rows of xs [N,D],
+    which come in runs of ``sizes`` by expert (``counts``, the same on xs's
+    device) → [N,D] (one zero row where N = 0, for the combine to read):
+    one grouped GEMM a projection over every expert's run
+    (``torch._grouped_mm``, the runs' ends from ``counts``), so the host
+    launches a few kernels a layer whatever the number of experts."""
+    if not sum(sizes):
+        return xs.new_zeros(1, xs.shape[-1])
+    offs = torch.cumsum(counts, 0).to(torch.int32)
     dt = xs.dtype
-    outs, a = [], 0
-    for e, n in enumerate(sizes):
-        if n:
-            x = xs[a:a + n]
-            h = F.silu(x @ p.wg[e].to(dt)) * (x @ p.wu[e].to(dt))
-            outs.append(h @ p.wd[e].to(dt))
-            a += n
-    return torch.cat(outs) if outs else xs.new_zeros(1, xs.shape[-1])
+
+    def mm(x, w):
+        return torch._grouped_mm(x, w.to(dt), offs=offs)
+
+    if p.wg is None:
+        return mm(torch.square(F.relu(mm(xs, p.wu))), p.wd)
+    return mm(F.silu(mm(xs, p.wg)) * mm(xs, p.wu), p.wd)
 
 
 def moe_forward(p: MoE, x, top_k: int, capacity_factor=1.25, counts=None,
@@ -442,20 +496,23 @@ def moe_forward(p: MoE, x, top_k: int, capacity_factor=1.25, counts=None,
     xf = x.reshape(B * S, D)
     flat_pads = None if pads is None else pads.reshape(B * S)
     r = route(p.router, xf, top_k, capacity_factor, rule, held=p.held, ragged=ragged,
-              pads=flat_pads)
-    experts = p.wg.placements if _is_dtensor(p.wg) else ()
+              pads=flat_pads, bias=p.e_score_correction_bias)
+    experts = p.wu.placements if _is_dtensor(p.wu) else ()
     shared = None
     if r.counts is None:
         expert_in = lsc(_dispatch(xf, r.token_idx, experts), "experts", None, None)
-        g = einsum("ecd,edf->ecf", expert_in, p.wg.to(dt))
         u = einsum("ecd,edf->ecf", expert_in, p.wu.to(dt))
-        h = lsc(F.silu(g) * u, "experts", None, "ffn")
+        if p.wg is None:
+            h = lsc(torch.square(F.relu(u)), "experts", None, "ffn")
+        else:
+            g = einsum("ecd,edf->ecf", expert_in, p.wg.to(dt))
+            h = lsc(F.silu(g) * u, "experts", None, "ffn")
         out_e = einsum("ecf,efd->ecd", h, p.wd.to(dt))
     else:
         sizes, shared = _read_behind(
             r.counts, lambda: None if p.shared is None else mlp_forward(p.shared, x))
         r.ragged_rows(sizes)
-        out_e = _ragged_experts(p, xf[r.token_idx], sizes)
+        out_e = _ragged_experts(p, xf[r.token_idx], sizes, r.counts)
     out_e = out_e * r.gate[..., None].to(dt)
     # each token's k contributions in the order of its choices; a dropped
     # slot, or one whose expert is held elsewhere, adds 0

@@ -391,6 +391,120 @@ def test_ssd_step_matches_plain(cuda, B, H, N, P, layout):
     assert ((y.float() - want.float()).abs() <= floor + 2.0 ** -7 * want.float().abs()).all()
 
 
+def _grouped_bc(cuda, B, S, G, N, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [(torch.randn(B, S, G, N, generator=gen, device=cuda) * 0.5).to(torch.bfloat16)
+            for _ in "BC"]
+
+
+@pytest.mark.parametrize("B,S,H,G,chunk", [
+    (2, 300, 16, 2, 128),       # ragged at 128, two groups of 8 heads
+    (1, 40, 8, 1, 128),         # one chunk of 40 steps, one group
+    (2, 100, 16, 2, 30),        # a chunk that is not a multiple of 16
+    (2, 1000, 12, 1, 128),      # H not a multiple of the kernel's head tile, one group
+    (8, 4096, 64, 8, 128),      # Nemotron 3 Nano's prefill at its longest
+])
+def test_ssd_sm90_n128_in_groups_matches_plain(cuda, B, S, H, G, chunk):
+    """K3-sm90's N 128 instance, B and C [B, S, G, 128]: one sm90 launch,
+    within ``_assert_ssd_close`` of the route's plain version; and, the scan
+    being separable over N, within two bf16 roundings of the two N 64
+    halves' y through the N 64 instance, its state their concatenation
+    within 1e-4·(1 + max|state|)."""
+    x, dt, _, _, a = _ssd_inputs(cuda, B, S, H, 64, 128, torch.bfloat16, None, S + H)
+    Bm, Cm = _grouped_bc(cuda, B, S, G, 128, S + H + 1)
+    assert ssd_ops.route(x, Bm) == "sm90"
+    sm90 = ssd_ops.launches_sm90
+    y, state = ssd_ops.ssd(x, dt, Bm, Cm, a, chunk=chunk)
+    assert ssd_ops.launches_sm90 == sm90 + 1
+    want_y, want_state = ssd_ops.ssd_plain(x, dt, Bm, Cm, a, chunk=chunk)
+    _assert_ssd_close(y, state, want_y, want_state, (B, S, H, 64), (B, H, 128, 64),
+                      torch.bfloat16)
+    y1, s1 = ssd_ops.ssd(x, dt, Bm[..., :64], Cm[..., :64], a, chunk=chunk)
+    y2, s2 = ssd_ops.ssd(x, dt, Bm[..., 64:], Cm[..., 64:], a, chunk=chunk)
+    halves = y1.float() + y2.float()
+    tol = 2.0 ** -7 * (y1.float().abs() + y2.float().abs() + y.float().abs()) \
+        + 1e-4 * (1 + halves.abs().max().item())
+    assert ((y.float() - halves).abs() <= tol).all()
+    st = torch.cat([s1, s2], 2)
+    assert (state - st).abs().max().item() <= 1e-4 * (1 + st.abs().max().item())
+
+
+@pytest.mark.parametrize("N", [64, 128])
+def test_ssd_sm90_one_group_is_every_group_alike(cuda, N):
+    """The group's offset changes no arithmetic: [B, S, N] (zamba2's
+    layout), [B, S, 1, N] and 8 identical groups give the same bits."""
+    B, S, H = 2, 700, 64
+    x, dt, Bm, Cm, a = _ssd_inputs(cuda, B, S, H, 64, N, torch.bfloat16, None, N)
+    y, state = ssd_ops.ssd(x, dt, Bm, Cm, a)
+    for g in (1, 8):
+        yg, sg = ssd_ops.ssd(x, dt, Bm[:, :, None].repeat(1, 1, g, 1),
+                             Cm[:, :, None].repeat(1, 1, g, 1), a)
+        assert torch.equal(yg, y) and torch.equal(sg, state)
+
+
+@pytest.mark.parametrize("B,H,G,N,P", [
+    (8, 64, 8, 128, 64),    # Nemotron 3 Nano's longprompt decode step
+    (64, 64, 8, 128, 64),   # at a batch of 64
+    (4, 8, 2, 16, 8),       # the smoke model
+])
+def test_ssd_step_in_groups_matches_plain(cuda, B, H, G, N, P):
+    """The decode step's kernel with B and C [B, G, N] against its plain
+    version (``test_ssd_step_matches_plain``'s tolerances), and one group
+    [B, 1, N] against the shared [B, N] bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(B + G + N)
+    state = torch.randn(B, H, N, P, generator=gen, device=cuda)
+    x = torch.randn(H * P, B, generator=gen, device=cuda).to(torch.bfloat16).t().view(B, H, P)
+    dt = torch.nn.functional.softplus(torch.randn(B, H, generator=gen, device=cuda))
+    a = -torch.exp(torch.randn(H, generator=gen, device=cuda) * 0.3)
+    Bm, Cm = (torch.randn(B, G, N, generator=gen, device=cuda) * 0.5 for _ in range(2))
+    d_skip = torch.randn(H, generator=gen, device=cuda).to(torch.bfloat16)
+    want_state = state.clone()
+    want = ssd_ops.ssd_step_plain(want_state, x, dt, a, Bm, Cm, d_skip)
+    before = ssd_ops.step_launches
+    got_state = state.clone()
+    y = ssd_ops.ssd_step(got_state, x, dt, a, Bm, Cm, d_skip)
+    torch.cuda.synchronize()
+    assert ssd_ops.step_launches == before + 1
+    st_err = (got_state - want_state).abs().max().item()
+    assert st_err <= 1e-6 * (1 + want_state.abs().max().item()), st_err
+    floor = 1e-4 * (1 + want.float().abs().max().item())
+    assert ((y.float() - want.float()).abs() <= floor + 2.0 ** -7 * want.float().abs()).all()
+    shared, one = state.clone(), state.clone()
+    y_shared = ssd_ops.ssd_step(shared, x, dt, a, Bm[:, 0], Cm[:, 0], d_skip)
+    y_one = ssd_ops.ssd_step(one, x, dt, a, Bm[:, :1], Cm[:, :1], d_skip)
+    assert torch.equal(y_shared, y_one) and torch.equal(shared, one)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "relu2"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_ragged_experts_grouped_match_the_loop(cuda, act, dtype):
+    """The prefill's dropless experts on the card, one grouped GEMM a
+    projection, against the same experts an expert at a time in fp32 on the
+    same rows: runs of uneven sizes, two experts with none.  bf16: within
+    one bf16 rounding of each product, 2**-7 of the output's largest
+    magnitude; fp32: 1e-5 of it (the GEMM kernels sum in other orders)."""
+    from repro_torch.models import moe
+
+    layer = moe.MoE(torch.Generator(device=cuda).manual_seed(0), 256, 128, 8, device=cuda,
+                    act=act)
+    sizes = [5, 0, 130, 17, 0, 64, 1, 300]
+    xs = torch.randn(sum(sizes), 256, generator=torch.Generator(device=cuda).manual_seed(1),
+                     device=cuda).to(dtype)
+    got = moe._ragged_experts(layer, xs, sizes, torch.tensor(sizes, device=cuda))
+    outs, a = [], 0
+    for e, n in enumerate(sizes):
+        x = xs[a:a + n].float()
+        u = x @ layer.wu[e].float()
+        h = (torch.square(torch.relu(u)) if act == "relu2"
+             else torch.nn.functional.silu(x @ layer.wg[e].float()) * u)
+        outs.append(h @ layer.wd[e].float())
+        a += n
+    want = torch.cat(outs)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert (got.float() - want).abs().max().item() <= tol * want.abs().max().item()
+
+
 def _bf16_decay_tol(x, dt, Bm, Cm, a, chunk):
     """The bf16-decay forms' tolerance beyond ``_assert_ssd_close``'s: the
     kernel and its plain version round G = C·Bᵀ to bf16 after sums of
@@ -772,11 +886,14 @@ def _op_by_op(model):
     return decode
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3.2-3b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3.2-3b", "deepseek-v2-236b",
+                                  "nemotron-3-nano-30b-a3b"])
 def test_decode_graph_replays_the_eager_step(cuda, arch):
     """The smoke model in bf16 (deepseek-v2 with its published head dims
     and every published option: group-limited ×16 unnormalised, dropless, a
-    held share, YaRN, left pads unrouted): greedy decode by the replayed
+    held share, YaRN, left pads unrouted; nemotron-h's pattern of Mamba2,
+    sigmoid-routed relu² MoE and NoPE attention blocks, left pads
+    unrouted): greedy decode by the replayed
     graph gives the step run op by op its tokens and logits bit for bit
     over 32 steps, capturing one graph for its (B, max_len) and replaying it
     at every step, the prefill's cache left as it was, and adds to the MoE's
@@ -795,6 +912,8 @@ def test_decode_graph_replays_the_eager_step(cuda, arch):
             capacity_factor=None, experts_held=(2, 4), unrouted_pad=0,
             rope_scaling=YaRN(factor=40, original_max_position_embeddings=4096,
                               mscale=0.707, mscale_all_dim=0.707))
+    if cfg.family == "nemotron_h":
+        cfg = dataclasses.replace(cfg, unrouted_pad=0)
     assert cfg.dtype == torch.bfloat16
     model = Model(cfg, device="cuda", seed=0)
     assert decode_graph.replays(model)

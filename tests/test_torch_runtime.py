@@ -402,6 +402,16 @@ EDITS = {
         ("device argument", ["child_init=soak_child_init, replicate=True, lease=True,"],
          ["child_init=soak_child_init, replicate=True, lease=True, device=device,"]),
     ],
+    "configs/__init__.py": [
+        ("an architecture of the port's alone", [], [
+            "from . import nemotron_3_nano_30b_a3b"]),
+        ("an architecture of the port's alone", [], [
+            "# the port's alone (no family of the JAX package's computes them): in",
+            "# ``get_config`` and ``ALL_ARCHS``, not in ``ARCHS``, which the tests hold",
+            "# against the JAX package",
+            '_MODULES["nemotron-3-nano-30b-a3b"] = nemotron_3_nano_30b_a3b',
+            "ALL_ARCHS = list(_MODULES.keys())"]),
+    ],
 }
 COPIED = ([f"core/{m}.py" for m in (
     "codec", "events", "triggers", "policy", "conditions", "context", "actions",
