@@ -177,7 +177,15 @@ decode ms a token and the device's busy share:
              and remat predict, the MoE's dropped token-slots equal, each
              one's peak memory; then one dry-run cell (llama3.2-3b ×
              decode_32k, trace only) in a process of its own with no card
-             visible; the group is destroyed before the phase returns.
+             visible; the group is destroyed before the phase returns;
+19. moe_decode  the decode step's routed-expert products alone, one MoE
+             layer at full width (Nemotron 3 Nano's 128 experts, all held;
+             DeepSeek-V2's 160, 20 held) at decode batches 8 and 64, by both
+             dropless routes: grouped over the slots (counts on the device)
+             and C = T over every held expert; device ms, ms replayed as a
+             CUDA graph (each route's replay equal to its op-by-op call bit
+             for bit), the experts read, their bytes and the bound at 3.35
+             TB/s: the numbers behind the route rule (T·k < E: grouped).
 
 Each kernel's launch count is set to 0 just before the path that should
 launch it (phases 5, 6 and 7, the fp32 forwards of 7 for the scalar
@@ -1659,6 +1667,119 @@ def phase_moe():
     _drop_models()
     return {"sm90": run["launches"]["launches_sm90"],
             "scalar": fp32["fp32_k2_launches"]["launches_scalar"]}
+
+
+# the decode step's dropless MoE at full width: (arch, d, F, E, k, held,
+# act, the rule's options) for Nemotron 3 Nano's 128 experts, all held, and
+# DeepSeek-V2's 160, 20 held (one chip of EP8)
+MOE_DECODE_LAYERS = {
+    "nemotron-3-nano-30b-a3b": (2688, 1856, 128, 6, None, "relu2",
+                                dict(norm_topk_prob=True, routed_scaling_factor=2.5,
+                                     scoring="sigmoid")),
+    "deepseek-v2-236b": (5120, 1536, 160, 6, (0, 20), "swiglu",
+                         dict(n_group=8, topk_group=3, norm_topk_prob=False,
+                              routed_scaling_factor=16.0)),
+}
+
+
+def _moe_decode_routes(arch, batches=(8, 64), draws=8, iters=48):
+    """The decode step's routed-expert products alone, one layer at full
+    width, by both dropless routes at each batch: ``grouped`` (the T·k
+    slots grouped by expert over counts kept on the device, one grouped
+    GEMM a projection, ``moe._grouped_experts``) and ``batched`` (C = T,
+    every held expert over T rows, ``moe._batched_experts``), each from the
+    routing's slots to the experts' outputs, over ``draws`` batches of
+    tokens taken in turn (their routings differ, as a served step's do).
+    For each: device ms (profiler, CUDA events beside it), ms replayed as
+    CUDA graphs (one captured a draw, its replay equal to the op-by-op
+    call bit for bit), the experts whose weights it reads a call
+    (``experts_read``, the mean), those bytes and their bound at 3.35 TB/s."""
+    import torch
+
+    from repro_torch.models import moe
+
+    d, F, E, k, held, act, rule = MOE_DECODE_LAYERS[arch]
+    rule = moe.Rule(**rule)
+    g = torch.Generator(device="cuda").manual_seed(E)
+    layer = moe.MoE(g, d, F, E, device="cuda", held=held, act=act,
+                    score_bias=rule.scoring == "sigmoid")
+    if layer.e_score_correction_bias is not None:
+        layer.e_score_correction_bias.copy_(
+            torch.randn(E, generator=g, device="cuda").float() * 0.05)
+    bias = layer.e_score_correction_bias
+    n_held = E if held is None else held[1]
+    per_expert = (2 if act == "relu2" else 3) * d * F * 2
+    out = {}
+    for B in batches:
+        calls = {"grouped": [], "batched": []}
+        read, held_slots = [], []
+        for _ in range(draws):
+            xf = torch.randn(B, d, generator=g, device="cuda").bfloat16()
+            logits = xf.float() @ layer.router.float()
+            probs = torch.sigmoid(logits) if rule.scoring == "sigmoid" else torch.softmax(logits, -1)
+            r = moe.Routing(*moe._route_probs(probs, k, None, held, rule, None, bias))
+            c = moe.Routing(*moe._route_probs(probs, k, B, held, rule, None, bias))
+            calls["grouped"].append(
+                lambda x=xf, r=r: moe._grouped_experts(layer, x[r.token_idx], r.counts))
+            calls["batched"].append(
+                lambda x=xf, c=c: moe._batched_experts(layer, x, c.token_idx, ()))
+            read.append(int(r.experts_read))
+            held_slots.append(int(r.held.sum()))
+        row = {"T_k": B * k, "E": E, "held_slots": held_slots,
+               "rule_takes": "grouped" if B * k < E else "batched"}
+        for name, fns in calls.items():
+            n_read = sum(read) / draws if name == "grouped" else n_held
+            n_bytes = n_read * per_expert
+            b, by = bound_ms(n_bytes, 0, "bfloat16")
+            turn = [0]
+
+            def call(fns=fns):
+                fns[turn[0] % draws]()
+                turn[0] += 1
+            times = kernel_times(iters, b, ms=call)
+            graphs = []
+            for i, fn in enumerate(fns):
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    fn()
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    captured = fn()
+                graph.replay()
+                eager = fn()
+                torch.cuda.synchronize()
+                rows = held_slots[i] if name == "grouped" else eager.numel() // d
+                if not torch.equal(captured.reshape(-1, d)[:rows], eager.reshape(-1, d)[:rows]):
+                    raise AssertionError(f"{arch} B {B}: the {name} route's graph replay is "
+                                         f"not its op-by-op call bit for bit")
+                graphs.append(graph)
+            turn[0] = 0
+
+            def replay():
+                graphs[turn[0] % draws].replay()
+                turn[0] += 1
+            row[name] = {"experts_read": n_read, "gbytes": n_bytes / 1e9, "bound_ms": b,
+                         "bound_by": by, "graph_ms": cuda_ms(replay, iters),
+                         "tb_s": n_bytes / times["ms"] / 1e9, **times}
+            del graphs
+        row["grouped_no_slower"] = (row["grouped"]["ms"] <= row["batched"]["ms"]
+                                    and row["grouped"]["graph_ms"] <= row["batched"]["graph_ms"])
+        out[f"b{B}"] = row
+    del layer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_decode():
+    """The decode expert products alone by both dropless routes, at
+    Nemotron's and DeepSeek's widths and decode batches 8 and 64
+    (``_moe_decode_routes``): the numbers that choose the route rule."""
+    t0 = time.perf_counter()
+    routes = {arch: _moe_decode_routes(arch) for arch in MOE_DECODE_LAYERS}
+    emit(phase="moe_decode", routes=routes, seconds=time.perf_counter() - t0)
+    return routes
 
 
 def _k2_at_deepseek_shape(max_err):
@@ -3235,7 +3356,7 @@ def main() -> int:
 
 
 def run_phases(torch) -> list:
-    """Phases 1-18; returns the lines that end the output (the kernels line,
+    """Phases 1-19; returns the lines that end the output (the kernels line,
     the card's name and power limit, the result), printed once every process
     the phases started has ended."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3269,6 +3390,7 @@ def run_phases(torch) -> list:
         train = phase_train(Path(tmp))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
         mesh = phase_distributed(Path(tmp))
+    phase_moe_decode()
     emit(phase="total", seconds=time.perf_counter() - t_start)
     mla = families["deepseek-v2-236b"]
     sm90_paths = {"llama3.2-3b": k2_launches, "zamba2-1.2b": hybrid["k2_sm90"],

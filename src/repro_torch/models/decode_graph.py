@@ -26,13 +26,15 @@ makes no shape from the data and reads nothing on the host at a tensor
 ``hybrid``, whose attention is the dense family's ``gqa_decode``,
 ``mla_moe``, whose attention is the absorbed ``mla_decode``, and
 ``nemotron_h``, whose Mamba2, MoE and NoPE ``gqa_decode`` blocks are the
-others'.  A decode
-step's MoE routes its T = B tokens into slots on the device: the capacity
-comes from T alone (C = T where dropless; the ragged path, which reads the
-experts' counts on the host, is the prefill's), so the step's shapes are
-fixed by (B, max_len).  The MoE's running sums (``Model.moe_counts``)
-count on in the replayed step; the warm-up steps before a capture serve no
-one, so the sums are put back as they were after them.  The others
+others'.  A decode step's MoE routes its T = B tokens into slots on the
+device: the capacity comes from T alone, or, dropless, the T·k slots stay
+grouped by expert over counts kept on the device where T·k < E, so an
+expert no slot chose is not read (C = T where T·k ≥ E; the ragged path,
+which reads the experts' counts on the host, is the prefill's), and the
+step's shapes are fixed by (B, max_len).  The MoE's running sums
+(``Model.moe_sums``) count on in the replayed step; the warm-up steps
+before a capture serve no one, so the sums are put back as they were
+after them.  The others
 (``moe``, ``vlm``, ``audio``, which the engine refuses, and ``xlstm``) run
 the step op by op, since no benchmark cell serves them and a graph of
 theirs would show no gain where it is measured.
@@ -73,7 +75,7 @@ class DecodeGraph:
         self.tokens = torch.zeros_like(tokens)
         self.pos = torch.zeros((), dtype=torch.int64, device=device)
         batch = {"tokens": self.tokens}
-        counts = None if model.moe_counts is None else model.moe_counts.clone()
+        counts = None if model.moe_sums is None else model.moe_sums.clone()
         with torch.cuda.device(device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
@@ -84,9 +86,9 @@ class DecodeGraph:
             # the warm-up's MoE slots were served to no one; the sums keep
             # their tensor, whose address the graph will hold
             if counts is not None:
-                model.moe_counts.copy_(counts)
-            elif model.moe_counts is not None:
-                model.moe_counts.zero_()
+                model.moe_sums.copy_(counts)
+            elif model.moe_sums is not None:
+                model.moe_sums.zero_()
             self.graph = torch.cuda.CUDAGraph()
             # the engine decodes on its worker's thread: other threads may
             # use the card meanwhile

@@ -453,15 +453,22 @@ class Model(nn.Module):
         self.decode_graph_captures = 0
         self.decode_graph_replays = 0
         # the MoE layers' running sums (``moe.moe_forward``'s ``counts``):
-        # slots routed, held here, expert rows computed, held slots dropped;
-        # int64 [4] on the device, made at the first MoE call outside autograd
-        self.moe_counts: Optional[torch.Tensor] = None
+        # slots routed, held here, expert rows computed, held slots dropped,
+        # held experts read; int64 [5] on the device, made at the first MoE
+        # call outside autograd
+        self.moe_sums: Optional[torch.Tensor] = None
 
     def _apply(self, fn, *args, **kwargs):
         # a graph reads the parameters at the addresses they had when it was
         # captured: a move or a cast drops the graphs
         self._decode_graphs.clear()
         return super()._apply(fn, *args, **kwargs)
+
+    @property
+    def moe_counts(self) -> Optional[torch.Tensor]:
+        """The first four of ``moe_sums``, the slots' sums: routed, held,
+        expert rows, dropped."""
+        return None if self.moe_sums is None else self.moe_sums[:4]
 
     def load_state_dict(self, *args, **kwargs):
         self._decode_graphs.clear()     # ``assign=True`` puts new tensors in
@@ -516,7 +523,7 @@ class Model(nn.Module):
         if lp.moe is None:
             return _residual(x, L.mlp_forward(lp.mlp, _normed(lp.ln2, x))), None
         m, aux = MOE.moe_forward(lp.moe, _normed(lp.ln2, x), cfg.top_k, cfg.capacity_factor,
-                                 counts=self._moe_counts(x), rule=cfg.routing, ragged=ragged,
+                                 counts=self._moe_sums(x), rule=cfg.routing, ragged=ragged,
                                  pads=pads)
         return _residual(x, m), aux
 
@@ -527,14 +534,14 @@ class Model(nn.Module):
             return None
         return (batch["tokens"] == pad).long().cumprod(-1).bool()
 
-    def _moe_counts(self, x) -> Optional[torch.Tensor]:
-        """``moe_counts`` on x's device, for a call outside autograd off a
+    def _moe_sums(self, x) -> Optional[torch.Tensor]:
+        """``moe_sums`` on x's device, for a call outside autograd off a
         mesh (serving's); None elsewhere (training, the mesh)."""
         if torch.is_grad_enabled() or L._is_dtensor(x):
             return None
-        if self.moe_counts is None or self.moe_counts.device != x.device:
-            self.moe_counts = torch.zeros(4, dtype=torch.int64, device=x.device)
-        return self.moe_counts
+        if self.moe_sums is None or self.moe_sums.device != x.device:
+            self.moe_sums = torch.zeros(5, dtype=torch.int64, device=x.device)
+        return self.moe_sums
 
     def _block(self, lp: Layer, x, cos, sin, pads=None):
         cfg = self.cfg
@@ -646,7 +653,7 @@ class Model(nn.Module):
             return out, state, None
         if lp.moe is not None:
             out, aux = MOE.moe_forward(lp.moe, h, cfg.top_k, cfg.capacity_factor,
-                                       counts=self._moe_counts(x), rule=cfg.routing,
+                                       counts=self._moe_sums(x), rule=cfg.routing,
                                        ragged=True, pads=pads)
             return out, None, aux
         out, kv = L.gqa_forward(lp.attn, h, None, None, q_chunk=cfg.q_chunk,
@@ -831,8 +838,10 @@ class Model(nn.Module):
         and every recurrent state (the hybrid's SSM and conv, xlstm's C, n
         and s_h) into ``cache`` in place → logits [B,V] fp32.  At a tensor
         ``pos`` it reads nothing on the host and makes no shape from the
-        data (the MoE routes unpadded, not ragged, at a capacity set by the
-        token count), so a CUDA graph can hold it."""
+        data (the MoE routes unpadded and not ragged: at a capacity set by
+        the token count, or, dropless, its T·k slots grouped by expert over
+        counts kept on the device where T·k < E, C = T where T·k ≥ E), so a
+        CUDA graph can hold it."""
         cfg = self.cfg
         x = self._embed(batch)
         if cfg.family == "xlstm":
@@ -860,7 +869,7 @@ class Model(nn.Module):
                     m += 1
                 elif lp.moe is not None:
                     out, _ = MOE.moe_forward(lp.moe, h, cfg.top_k, cfg.capacity_factor,
-                                             counts=self._moe_counts(x), rule=cfg.routing)
+                                             counts=self._moe_sums(x), rule=cfg.routing)
                 else:
                     out = L.gqa_decode(lp.attn, h, cache["k"][a], cache["v"][a], pos,
                                        None, None)[0]

@@ -60,10 +60,16 @@ by default, so the defaults compute the reference's function):
   busiest expert holds times every expert).  On a card the read is
   queued before the shared experts' MLP, so the device computes that
   while the host waits for the counts and launches the experts'
-  products (``_read_behind``).  Otherwise (a decode step) C = T: a token
-  picks an expert at most once, so T is always enough, and at a decode
-  batch's few tokens the products are bound by reading the weights, so
-  the rows a read would save cost nothing.  Off a mesh only.
+  products (``_read_behind``).  Otherwise (a decode step) no host read:
+  where the step's T·k slots are fewer than the E experts, all T·k slots
+  stay, the held ones sorted first by expert, and the same grouped GEMMs
+  run over the counts and offsets on the device (``_grouped_experts``), so
+  an expert no slot chose has none of its weights read; the rows past the
+  last held slot are not written, and the combine selects them out.  At a
+  decode batch's few tokens the products are bound by reading the
+  weights, so this reads only the routed experts' bytes.  Where T·k ≥ E,
+  nearly every expert is chosen, and C = T: a token picks an expert at
+  most once, so T is always enough.  Off a mesh only.
 - ``pads`` [T] (the model's, from ``ModelConfig.unrouted_pad``): tokens
   that take no routed slot, the serving engine's left pads.  They hold no
   token, and a batch's pads share one hidden state, so routed they would
@@ -83,11 +89,13 @@ has it), also off by default:
   ``wu`` and ``wd`` alone; the shared expert likewise, of width
   ``d_ff_shared``.
 
-``moe_forward`` adds, where given ``counts`` (an int64 [4] on the device,
+``moe_forward`` adds, where given ``counts`` (an int64 [5] on the device,
 the model's running sums; no host read), the slots routed (pads' left
 out), the slots whose expert is held here, the expert rows computed (held
-experts × C, or the held slots where ragged) and the held slots dropped
-past the capacity.
+experts × C, or the held slots on the grouped routes), the held slots
+dropped past the capacity, and the held experts whose weights the products
+read (those with a row on the grouped routes, every one at C = T or under
+a capacity).
 """
 from __future__ import annotations
 
@@ -180,12 +188,13 @@ class Routing:
     [E,C]: the token each expert row reads (rows past an expert's count
     read a clamped slot and get gate 0, as in the reference); ``gate``
     [E,C]: the routing weight, fp32; ``held`` [T,k]: the slot's expert is
-    held here and its token is not a pad (all True by default).  Ragged
-    (dropless, ``route``'s ``ragged``): ``counts`` holds each held expert's
-    count on the device, ``token_idx`` and ``gate`` are flat [T·k] over the
-    slots in their sorted order, the held slots first, and ``where`` a
-    slot's place in it; ``ragged_rows`` reads the counts into ``sizes``,
-    keeps the held slots alone and sets ``cap`` to the largest count."""
+    held here and its token is not a pad (all True by default).  Grouped
+    (dropless, ``_route_probs``' ``cap`` None): ``counts`` holds each held
+    expert's count on the device, ``token_idx`` and ``gate`` are flat [T·k]
+    over the slots in their sorted order, the held slots first, and
+    ``where`` a slot's place in it; where ragged, ``ragged_rows`` reads the
+    counts into ``sizes``, keeps the held slots alone and sets ``cap`` to
+    the largest count."""
     top_e: torch.Tensor
     kept: torch.Tensor
     where: torch.Tensor
@@ -198,9 +207,21 @@ class Routing:
     sizes: Optional[List[int]] = None
 
     @property
-    def rows(self) -> int:
-        """The expert rows the products compute."""
-        return sum(self.sizes) if self.sizes is not None else self.gate.numel()
+    def rows(self):
+        """The expert rows the products compute (a device sum on a decode
+        step's grouped route)."""
+        if self.sizes is not None:
+            return sum(self.sizes)
+        return self.gate.numel() if self.counts is None else self.counts.sum()
+
+    @property
+    def experts_read(self):
+        """The held experts whose weights the products read: those with a
+        row on the grouped routes (a device sum at decode), every one at
+        C = T or under a capacity."""
+        if self.sizes is not None:
+            return sum(n > 0 for n in self.sizes)
+        return self.gate.shape[0] if self.counts is None else (self.counts > 0).sum()
 
     @property
     def dropped(self) -> int:
@@ -223,8 +244,10 @@ def route(router, xf, top_k: int, capacity_factor, rule: Rule = Rule(), held=Non
     whole on every rank (``_route_on_mesh``); ``held``, ``pads``, the
     dropless capacity (``capacity_factor=None``) and sigmoid scores are off
     a mesh only.  Dropless, ``ragged`` leaves the held experts' counts on
-    the device for the caller to read; else C = T.  ``bias`` [E]: the
-    sigmoid rule's correction bias."""
+    the device for the caller to read; else the slots stay grouped by
+    expert over the counts on the device where T·k < E, and C = T where
+    T·k ≥ E (the module's doc).  ``bias`` [E]: the sigmoid rule's
+    correction bias."""
     logits = matmul(xf.float(), router.float())
     if rule.scoring == "sigmoid":
         probs = torch.sigmoid(logits)                                      # [T,E]
@@ -237,9 +260,16 @@ def route(router, xf, top_k: int, capacity_factor, rule: Rule = Rule(), held=Non
                              "leaving pads unrouted or scoring by sigmoid runs off a mesh "
                              "only: the exchange between chips is not built")
         return _route_on_mesh(probs, top_k, capacity_factor, rule)
-    T = xf.shape[0]
-    cap = ((None if ragged else T) if capacity_factor is None
-           else capacity(T, top_k, router.shape[-1], capacity_factor))
+    T, E = probs.shape
+    if capacity_factor is not None:
+        cap = capacity(T, top_k, E, capacity_factor)
+    else:
+        # one layer's expert products on an H100 (PERF.md §6): at T·k < E
+        # the grouped route reads 30% of Nemotron's experts and 19% of
+        # DeepSeek-V2's held 20, 0.32 against 0.84 ms and 0.11 against 0.32
+        # ms; at DeepSeek-V2's T 64 (T·k = 2.4 E) it reads 87% of them and
+        # is no faster, 0.356 against 0.355 ms, so C = T from T·k = E on
+        cap = None if ragged or T * top_k < E else T
     return Routing(*_route_probs(probs, top_k, cap, held, rule, pads, bias))
 
 
@@ -413,7 +443,8 @@ def _combine(out_e, where, kept, xf, experts):
     k = where.shape[1]
 
     def add(rows, idx, keep):
-        contrib = rows.reshape(-1, D)[idx] * keep[..., None].to(rows.dtype)   # [T,k,D]
+        # a select, not a product: a row no slot keeps may be unwritten, and 0 × NaN is NaN
+        contrib = torch.where(keep[..., None], rows.reshape(-1, D)[idx], 0.0)   # [T,k,D]
         out = contrib[:, 0]
         for j in range(1, k):
             out = out + contrib[:, j]
@@ -451,6 +482,21 @@ def _combine(out_e, where, kept, xf, experts):
                      (ge, whole, whole))
 
 
+def _batched_experts(p: MoE, xf, token_idx, experts):
+    """Each held expert's SwiGLU (or relu²) over its C rows of xf [T,D]
+    at ``token_idx`` [E,C] → [E,C,D]: three (two) batched matmuls over
+    every held expert's weights.  ``experts``: ``_dispatch``'s."""
+    dt = xf.dtype
+    expert_in = lsc(_dispatch(xf, token_idx, experts), "experts", None, None)
+    u = einsum("ecd,edf->ecf", expert_in, p.wu.to(dt))
+    if p.wg is None:
+        h = lsc(torch.square(F.relu(u)), "experts", None, "ffn")
+    else:
+        g = einsum("ecd,edf->ecf", expert_in, p.wg.to(dt))
+        h = lsc(F.silu(g) * u, "experts", None, "ffn")
+    return einsum("ecf,efd->ecd", h, p.wd.to(dt))
+
+
 def _read_behind(counts, work):
     """counts (int64, on the device) → (its list on the host, ``work()``).
     On a card the copy is queued before ``work``'s kernels and the host
@@ -468,14 +514,22 @@ def _read_behind(counts, work):
 
 
 def _ragged_experts(p: MoE, xs, sizes, counts):
-    """Each held expert's SwiGLU (or relu²) over its own rows of xs [N,D],
-    which come in runs of ``sizes`` by expert (``counts``, the same on xs's
-    device) → [N,D] (one zero row where N = 0, for the combine to read):
-    one grouped GEMM a projection over every expert's run
-    (``torch._grouped_mm``, the runs' ends from ``counts``), so the host
-    launches a few kernels a layer whatever the number of experts."""
+    """The prefill's ``_grouped_experts`` over xs [N,D] whose runs'
+    ``sizes`` were read on the host: one zero row where N = 0, for the
+    combine to read."""
     if not sum(sizes):
         return xs.new_zeros(1, xs.shape[-1])
+    return _grouped_experts(p, xs, counts)
+
+
+def _grouped_experts(p: MoE, xs, counts):
+    """Each held expert's SwiGLU (or relu²) over its own rows of xs [N,D],
+    which come first in runs of ``counts`` by expert (int64 on xs's device)
+    → [N,D]: one grouped GEMM a projection over every expert's run
+    (``torch._grouped_mm``, the runs' ends from ``counts``), so the host
+    launches a few kernels a layer whatever the number of experts, and an
+    expert with no row has an empty problem, none of its weights read.
+    Rows past the last run are not written."""
     offs = torch.cumsum(counts, 0).to(torch.int32)
     dt = xs.dtype
 
@@ -500,19 +554,14 @@ def moe_forward(p: MoE, x, top_k: int, capacity_factor=1.25, counts=None,
     experts = p.wu.placements if _is_dtensor(p.wu) else ()
     shared = None
     if r.counts is None:
-        expert_in = lsc(_dispatch(xf, r.token_idx, experts), "experts", None, None)
-        u = einsum("ecd,edf->ecf", expert_in, p.wu.to(dt))
-        if p.wg is None:
-            h = lsc(torch.square(F.relu(u)), "experts", None, "ffn")
-        else:
-            g = einsum("ecd,edf->ecf", expert_in, p.wg.to(dt))
-            h = lsc(F.silu(g) * u, "experts", None, "ffn")
-        out_e = einsum("ecf,efd->ecd", h, p.wd.to(dt))
-    else:
+        out_e = _batched_experts(p, xf, r.token_idx, experts)
+    elif ragged:
         sizes, shared = _read_behind(
             r.counts, lambda: None if p.shared is None else mlp_forward(p.shared, x))
         r.ragged_rows(sizes)
         out_e = _ragged_experts(p, xf[r.token_idx], sizes, r.counts)
+    else:
+        out_e = _grouped_experts(p, xf[r.token_idx], r.counts)
     out_e = out_e * r.gate[..., None].to(dt)
     # each token's k contributions in the order of its choices; a dropped
     # slot, or one whose expert is held elsewhere, adds 0
@@ -526,4 +575,5 @@ def moe_forward(p: MoE, x, top_k: int, capacity_factor=1.25, counts=None,
         counts[1].add_(r.held.sum())
         counts[2].add_(r.rows)
         counts[3].add_((r.held & ~r.kept).sum())
+        counts[4].add_(r.experts_read)
     return out, r.aux_loss

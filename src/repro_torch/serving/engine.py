@@ -22,9 +22,12 @@ counters are always on and take one ``inc`` a batch:
 the model's own count; over the steps, the graph's hit share), and the MoE
 layers' ``tf_serve_moe_routed_slots_total``, ``_held_slots_total`` (slots
 whose expert this chip holds), ``_expert_rows_total`` (rows the expert
-products computed: held experts × capacity) and ``_dropped_slots_total``
-(held slots past the capacity), read off the model's device-side running
-sums (``Model.moe_counts``) once a batch, after the decode loop's
+products computed: held experts × capacity, or the held slots where the
+experts run grouped), ``_dropped_slots_total`` (held slots past the
+capacity) and ``_experts_read_total`` (held experts whose weights the
+products read, summed over the MoE calls; over held experts × calls, the
+share of the experts' bytes read), read off the model's device-side
+running sums (``Model.moe_sums``) once a batch, after the decode loop's
 synchronising read of the tokens; 0 for a model without MoE layers.  Given a
 ``Tracer``, it records spans on the trace plane (``obs/trace.py``), all
 stamped by ``Tracer.begin`` (``ts`` on ``time.time()``, the clock of the
@@ -40,9 +43,9 @@ profiler's device trace) and ended by ``Tracer.end``:
   ``prompt_tokens``, ``pad_tokens``, ``ids``;
 - ``serve.prefill`` (``B``, ``S``, ``prompt_tokens``, ``pad_tokens``; for a
   model with MoE layers also the prefill's own ``moe_routed_slots``,
-  ``moe_held_slots``, ``moe_expert_rows`` and ``moe_dropped_slots``, the
-  one place a span reads the device: the running sums before and after
-  the prefill) and one
+  ``moe_held_slots``, ``moe_expert_rows``, ``moe_dropped_slots`` and
+  ``moe_experts_read``, the one place a span reads the device: the
+  running sums before and after the prefill) and one
   ``serve.decode`` a step (``B``, ``pos``, ``graph``: whether the step
   replayed a graph), children of the batch, around
   the model's calls.  No span synchronises the device: on a card a span
@@ -66,8 +69,8 @@ from ..obs.trace import Tracer, context_of_span, inject
 
 _ENGINES: Dict[str, "ServingEngine"] = {}
 
-# ``Model.moe_counts``'s entries, in order, as counters and span attributes
-MOE_COUNTS = ("routed_slots", "held_slots", "expert_rows", "dropped_slots")
+# ``Model.moe_sums``' entries, in order, as counters and span attributes
+MOE_COUNTS = ("routed_slots", "held_slots", "expert_rows", "dropped_slots", "experts_read")
 
 
 def engine_for(workflow: str) -> Optional["ServingEngine"]:
@@ -118,8 +121,8 @@ class ServingEngine:
     def _moe_sums(self) -> List[int]:
         """The model's MoE running sums (one device-to-host read), zeros
         before its first MoE call."""
-        counts = self.model.moe_counts
-        return [0] * len(MOE_COUNTS) if counts is None else counts.tolist()
+        sums = self.model.moe_sums
+        return [0] * len(MOE_COUNTS) if sums is None else sums.tolist()
 
     def deploy(self) -> None:
         self.tf.create_workflow(self.workflow, {"kind": "serving"})

@@ -886,14 +886,24 @@ def _op_by_op(model):
     return decode
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama3.2-3b", "deepseek-v2-236b",
-                                  "nemotron-3-nano-30b-a3b"])
-def test_decode_graph_replays_the_eager_step(cuda, arch):
+@pytest.mark.parametrize("arch,n_experts", [
+    pytest.param("zamba2-1.2b", None, id="zamba2-1.2b"),
+    pytest.param("llama3.2-3b", None, id="llama3.2-3b"),
+    pytest.param("deepseek-v2-236b", None, id="deepseek-v2-236b"),
+    pytest.param("nemotron-3-nano-30b-a3b", None, id="nemotron-3-nano-30b-a3b"),
+    pytest.param("deepseek-v2-236b", 16, id="deepseek-v2-236b-e16"),
+    pytest.param("nemotron-3-nano-30b-a3b", 16, id="nemotron-3-nano-30b-a3b-e16"),
+])
+def test_decode_graph_replays_the_eager_step(cuda, arch, n_experts):
     """The smoke model in bf16 (deepseek-v2 with its published head dims
     and every published option: group-limited ×16 unnormalised, dropless, a
     held share, YaRN, left pads unrouted; nemotron-h's pattern of Mamba2,
     sigmoid-routed relu² MoE and NoPE attention blocks, left pads
-    unrouted): greedy decode by the replayed
+    unrouted).  The MoE's decode steps at top-2: with the smoke model's 8
+    experts, B 4 has T·k = E and takes C = T, B 2 has T·k < E and runs the
+    experts grouped over the slots; with 16 experts both run grouped
+    (deepseek-v2's share of 4 then often holds no slot of a step).  Greedy
+    decode by the replayed
     graph gives the step run op by op its tokens and logits bit for bit
     over 32 steps, capturing one graph for its (B, max_len) and replaying it
     at every step, the prefill's cache left as it was, and adds to the MoE's
@@ -905,6 +915,8 @@ def test_decode_graph_replays_the_eager_step(cuda, arch):
     from repro_torch.models.layers import YaRN
 
     cfg = get_config(arch, smoke=True)
+    if n_experts is not None:
+        cfg = dataclasses.replace(cfg, n_experts=n_experts)
     if cfg.family == "mla_moe":
         cfg = dataclasses.replace(
             cfg, head_dim=192, nope_head_dim=128, rope_head_dim=64, v_head_dim=128,
@@ -923,13 +935,13 @@ def test_decode_graph_replays_the_eager_step(cuda, arch):
         tokens[0, :5] = cfg.unrouted_pad                # left pads
     want, want_logits = _greedy(model, _op_by_op(model), tokens, 64, 32)
     # the MoE's running sums after one prefill and the op-by-op steps
-    sums = None if model.moe_counts is None else model.moe_counts.clone()
+    sums = None if model.moe_sums is None else model.moe_sums.clone()
     assert model.decode_graph_captures == model.decode_graph_replays == 0
     got, got_logits = _greedy(model, model.decode, tokens, 64, 32)
     assert (model.decode_graph_captures, model.decode_graph_replays) == (1, 32)
     assert torch.equal(got, want) and torch.equal(got_logits, want_logits)
     if sums is not None:
-        assert torch.equal(model.moe_counts, 2 * sums)
+        assert torch.equal(model.moe_sums, 2 * sums)
 
     logits, cache = model.prefill({"tokens": tokens}, max_len=64)
     kept = {k: v.clone() for k, v in cache.items() if k != "pos"}

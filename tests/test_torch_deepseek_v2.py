@@ -212,13 +212,14 @@ def test_the_eight_shares_add_up_to_the_uncut_layer(S, ragged):
                              ragged=ragged)[0] - shared
              for i in range(8)]
     torch.testing.assert_close(sum(parts) + shared, want, rtol=1e-5, atol=1e-5)
-    counts = torch.zeros(4, dtype=torch.int64)
+    counts = torch.zeros(5, dtype=torch.int64)
     moe.moe_forward(_share_of(whole, 6, 2), x, 4, None, counts=counts, rule=rule,
                     ragged=ragged)
     r = moe.route(whole.router, x.reshape(-1, 16), 4, None, rule)
-    held = int(((r.top_e >= 6) & (r.top_e < 8)).sum())
-    rows = held if ragged else 2 * T
-    assert counts.tolist() == [T * 4, held, rows, 0]
+    mine = (r.top_e >= 6) & (r.top_e < 8)
+    held = int(mine.sum())
+    rows, read = (held, len(set(r.top_e[mine].tolist()))) if ragged else (2 * T, 2)
+    assert counts.tolist() == [T * 4, held, rows, 0, read]
 
 
 def test_a_share_is_a_range_of_the_experts():
@@ -294,7 +295,7 @@ def test_pads_take_no_routed_slot(ragged):
     pads[0, :5] = pads[1, 0] = True
     rule = moe.Rule(8, 3, False, 16.0)
     for p in (whole, part):
-        counts = torch.zeros(4, dtype=torch.int64)
+        counts = torch.zeros(5, dtype=torch.int64)
         got, _ = moe.moe_forward(p, x, 4, None, counts=counts, rule=rule, ragged=ragged,
                                  pads=pads)
         free, _ = moe.moe_forward(p, x, 4, None, rule=rule, ragged=ragged)
@@ -306,8 +307,9 @@ def test_pads_take_no_routed_slot(ragged):
         first, n = p.held or (0, 16)
         mine = (r.top_e >= first) & (r.top_e < first + n) & ~pads.reshape(-1, 1)
         assert torch.equal(r.held, mine) and torch.equal(r.kept, mine)
-        rows = int(mine.sum()) if ragged else n * 18
-        assert counts.tolist() == [12 * 4, int(mine.sum()), rows, 0]
+        rows, read = ((int(mine.sum()), len(set(r.top_e[mine].tolist()))) if ragged
+                      else (n * 18, n))
+        assert counts.tolist() == [12 * 4, int(mine.sum()), rows, 0, read]
 
 
 @pytest.mark.parametrize("ragged", [False, True])
@@ -316,11 +318,11 @@ def test_a_layer_with_no_held_slot_adds_the_shared_expert_alone(ragged):
     shared expert's."""
     p = _share_of(_layer(16), 4, 4)
     x = torch.randn(2, 5, 16, generator=torch.Generator().manual_seed(9))
-    counts = torch.zeros(4, dtype=torch.int64)
+    counts = torch.zeros(5, dtype=torch.int64)
     got, _ = moe.moe_forward(p, x, 4, None, counts=counts, ragged=ragged,
                              pads=torch.ones(2, 5, dtype=torch.bool))
     assert torch.equal(got, layers.mlp_forward(p.shared, x))
-    assert counts.tolist() == [0, 0, 0 if ragged else 4 * 10, 0]
+    assert counts.tolist() == [0, 0, 0 if ragged else 4 * 10, 0, 0 if ragged else 4]
 
 
 def test_the_model_finds_each_rows_leading_pads():

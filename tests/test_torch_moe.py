@@ -20,6 +20,7 @@ import torch
 import repro.models.moe as REF
 from repro_torch.configs import get_config
 from repro_torch.models import moe as MOE
+from repro_torch.models.layers import mlp_forward
 
 
 def _np(rng, *shape, scale=1.0):
@@ -192,3 +193,108 @@ def test_phi35_moe_decode_drops_token_slots(monkeypatch):
     x[1] = x[0] * 1.5
     r, dropped = _check(monkeypatch, w, x, k, cf)
     assert dropped.size >= 1 and not r.kept[1].all()
+
+
+def _expert_loop(p, x, top_k, rule, pads):
+    """A decode batch's routed experts token by token in fp64: each slot
+    whose expert the layer holds, its token no pad, adds its gate times its
+    expert's MLP of the token; the routing is the port's own ``_top_k``."""
+    xf = x.reshape(-1, x.shape[-1])
+    logits = xf @ p.router
+    probs = torch.sigmoid(logits) if rule.scoring == "sigmoid" else torch.softmax(logits, -1)
+    top_p, top_e = MOE._top_k(probs, top_k, rule, p.e_score_correction_bias)
+    first, n = p.held or (0, p.router.shape[1])
+    out = torch.zeros(xf.shape, dtype=torch.float64)
+    for t in range(xf.shape[0]):
+        if pads is not None and pads.reshape(-1)[t]:
+            continue
+        v = xf[t].double()
+        for j in range(top_k):
+            e = int(top_e[t, j]) - first
+            if not 0 <= e < n:
+                continue
+            u = v @ p.wu[e].double()
+            h = (torch.square(torch.relu(u)) if p.wg is None
+                 else torch.nn.functional.silu(v @ p.wg[e].double()) * u)
+            out[t] += top_p[t, j].double() * (h @ p.wd[e].double())
+    return out
+
+
+@pytest.fixture
+def unwritten_is_nan():
+    """Deterministic mode fills every fresh tensor with NaN, so an output
+    row the grouped GEMM does not write reads NaN."""
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+# (rule, act, E, held, B, k, pads): Nemotron's rule (sigmoid with a bias,
+# relu², all held) and DeepSeek's (group-limited ×16, SwiGLU, a held share),
+# each with T·k below E (the grouped route) and at or above it (C = T); a
+# batch none of whose slots is held here; left pads
+@pytest.mark.parametrize("case", [
+    ("sigmoid", "relu2", 16, None, 2, 6, False),
+    ("sigmoid", "relu2", 16, None, 4, 6, False),
+    ("groups", "swiglu", 16, (4, 8), 2, 3, False),
+    ("groups", "swiglu", 16, (4, 8), 8, 3, False),
+    ("groups", "swiglu", 16, "unused", 2, 2, False),
+    ("sigmoid", "relu2", 16, None, 3, 4, True),
+    ("groups", "swiglu", 16, (0, 8), 3, 3, True),
+], ids=["nemotron-below", "nemotron-above", "deepseek-below", "deepseek-above",
+        "none-held", "nemotron-pads", "deepseek-pads"])
+def test_dropless_decode_step_reads_only_the_routed_experts(unwritten_is_nan, case):
+    """A decode-shaped [B,1,D] batch through the dropless layer in fp32,
+    against the routed experts token by token: where T·k < E the slots stay
+    grouped over the counts on the device (the rows computed are the held
+    slots, the experts read those with a row), else C = T (every held
+    expert reads T rows); the five running sums say which.  With no slot
+    held here the output is the shared experts' alone, finite, though the
+    grouped GEMM wrote none of its rows."""
+    scoring, act, E, held, B, k, with_pads = case
+    D, F = 32, 24
+    rule = (MOE.Rule(scoring="sigmoid", routed_scaling_factor=2.5) if scoring == "sigmoid"
+            else MOE.Rule(n_group=4, topk_group=2, norm_topk_prob=False,
+                          routed_scaling_factor=16.0))
+    x = torch.randn(B, 1, D, generator=torch.Generator().manual_seed(B * k))
+    pads = None
+    if with_pads:
+        pads = torch.zeros(B, 1, dtype=torch.bool)
+        pads[0] = True
+
+    def layer(held):
+        p = MOE.MoE(torch.Generator().manual_seed(E), D, F, E, 1, held=held, act=act,
+                    score_bias=scoring == "sigmoid").float()
+        if p.e_score_correction_bias is not None:
+            p.e_score_correction_bias.copy_(
+                torch.randn(E, generator=torch.Generator().manual_seed(1)) * 0.05)
+        return p
+
+    if held == "unused":
+        # two neighbouring experts that no slot of the batch chose
+        top_e = MOE.route(layer(None).router, x.reshape(B, D), k, None, rule,
+                          ragged=True).top_e
+        first = next(e for e in range(E - 1) if not (top_e == e).any() | (top_e == e + 1).any())
+        held = (first, 2)
+    p = layer(held)
+    n_held = E if held is None else held[1]
+    counts = torch.zeros(5, dtype=torch.int64)
+    out, _ = MOE.moe_forward(p, x, k, None, counts=counts, rule=rule, pads=pads)
+
+    shared = mlp_forward(p.shared, x)
+    want = _expert_loop(p, x, k, rule, pads).reshape(B, 1, D) + shared.double()
+    assert torch.isfinite(out).all()
+    assert (out.double() - want).abs().max().item() <= 1e-5 * (1 + want.abs().max().item())
+    r = MOE.route(p.router, x.reshape(B, D), k, None, rule, held=p.held,
+                  pads=None if pads is None else pads.reshape(B),
+                  bias=p.e_score_correction_bias)
+    held_slots = int(r.held.sum())
+    used = len(set(r.top_e[r.held].tolist()))
+    routed = (B - int(with_pads)) * k
+    if B * k < E:
+        rows, read = held_slots, used
+    else:
+        rows, read = n_held * B, n_held
+    assert counts.tolist() == [routed, held_slots, rows, 0, read]
+    if held_slots == 0:
+        assert torch.equal(out, shared)

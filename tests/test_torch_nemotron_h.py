@@ -271,7 +271,9 @@ def test_the_family_is_built_from_its_pattern():
 def test_prefill_then_decode_match_the_forward():
     """fp32: a prefill and decode steps through the cache give the full
     forward's logits at those positions, within the sums' order; the MoE's
-    running sums count k slots a position in each E block."""
+    running sums count k slots a position in each E block, the rows
+    computed are the slots, and a step reads at most the T·k = 6 experts
+    its slots chose of the 8, where C = T would read all 8."""
     cfg = dataclasses.replace(get_config("nemotron-3-nano-30b-a3b", smoke=True),
                               dtype=F32)
     model = Model(cfg, device="cpu", seed=1)
@@ -282,9 +284,13 @@ def test_prefill_then_decode_match_the_forward():
     for t in range(17, 21):
         lg, cache = model.decode(cache, {"tokens": toks[:, t:t + 1]})
         assert (lg - full[:, t]).abs().max().item() <= 1e-5 * (1 + full.abs().max().item())
-    routed, held, rows, dropped = model.moe_counts.tolist()
+    routed, held, rows, dropped, read = model.moe_sums.tolist()
     n_e = cfg.layer_pattern.count("E")
     assert routed == held == cfg.top_k * n_e * 3 * 21 and dropped == 0
+    assert rows == held and cfg.n_experts > 3 * cfg.top_k
+    # an E block's prefill reads at most every expert, each of its 4 steps
+    # at most 6, and every call at least one
+    assert n_e * 5 <= read <= n_e * (cfg.n_experts + 4 * 3 * cfg.top_k)
 
 
 def test_the_engine_counts_k_slots_a_real_position_in_each_e_block():

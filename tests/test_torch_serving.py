@@ -25,7 +25,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import Triggerflow
 from repro_torch.models.convert import params_from_jax
 from repro_torch.obs.trace import Tracer, trace_context
-from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.engine import MOE_COUNTS, ServingEngine
 
 
 def _prompts(seed=0, n=6, vocab=256):
@@ -241,7 +241,8 @@ def test_engine_counts_requests_batches_and_prompt_tokens():
         "tf_serve_pad_tokens_total": slots - sum(lens),
         "tf_serve_decode_steps_total": 6, "tf_serve_decode_graph_replays_total": 0,
         "tf_serve_moe_routed_slots_total": 0, "tf_serve_moe_held_slots_total": 0,
-        "tf_serve_moe_expert_rows_total": 0, "tf_serve_moe_dropped_slots_total": 0}
+        "tf_serve_moe_expert_rows_total": 0, "tf_serve_moe_dropped_slots_total": 0,
+        "tf_serve_moe_experts_read_total": 0}
     assert port._roots == {} and port._batch is None
 
 
@@ -290,7 +291,7 @@ def test_engine_counts_the_moe_slots_and_the_prefill_span_carries_them(capacity_
     dropless or at the default capacity: the routed slots are B·k·2 a
     position (the prefill's S and 3 decode steps), every expert held, the
     rows at least the slots; dropless drops none.  Each ``serve.prefill``
-    carries its own four counts, and ``engine_for`` finds the engine."""
+    carries its own five counts, and ``engine_for`` finds the engine."""
     from repro_torch.serving.engine import engine_for
 
     cfg = dataclasses.replace(get_config("deepseek-v2-236b", smoke=True), dtype=torch.float32,
@@ -308,7 +309,7 @@ def test_engine_counts_the_moe_slots_and_the_prefill_span_carries_them(capacity_
     assert c["tf_serve_moe_routed_slots_total"] == c["tf_serve_moe_held_slots_total"] == routed
     assert sum(sp["moe_routed_slots"] for sp in prefills) == sum(
         sp["B"] * 2 * 2 * sp["S"] for sp in prefills)
-    for name in ("routed_slots", "held_slots", "expert_rows", "dropped_slots"):
+    for name in MOE_COUNTS:
         assert 0 <= sum(sp[f"moe_{name}"] for sp in prefills) <= c[f"tf_serve_moe_{name}_total"]
     if capacity_factor is None:
         assert c["tf_serve_moe_dropped_slots_total"] == 0
@@ -316,9 +317,8 @@ def test_engine_counts_the_moe_slots_and_the_prefill_span_carries_them(capacity_
     else:
         # decode's 3 tokens over 8 experts at top-2: one slot an expert
         assert c["tf_serve_moe_dropped_slots_total"] > 0
-    assert tuple(port.model.moe_counts.tolist()) == tuple(
-        c[f"tf_serve_moe_{n}_total"] for n in ("routed_slots", "held_slots", "expert_rows",
-                                                "dropped_slots"))
+    assert tuple(port.model.moe_sums.tolist()) == tuple(
+        c[f"tf_serve_moe_{n}_total"] for n in MOE_COUNTS)
 
 
 def test_a_model_without_moe_layers_counts_no_moe_slots():
@@ -326,9 +326,8 @@ def test_a_model_without_moe_layers_counts_no_moe_slots():
     _, port = _engines(arch="zamba2-1.2b", tracer=tracer)
     _serve(port, _prompts(seed=10))
     c = port.metrics.snapshot()["counters"]
-    assert port.batches == 2 and port.model.moe_counts is None
-    assert [c[f"tf_serve_moe_{n}_total"] for n in ("routed_slots", "held_slots",
-                                                   "expert_rows", "dropped_slots")] == [0] * 4
+    assert port.batches == 2 and port.model.moe_sums is None
+    assert [c[f"tf_serve_moe_{n}_total"] for n in MOE_COUNTS] == [0] * 5
     assert not any(k.startswith("moe_") for sp in tracer.collector.spans for k in sp)
 
 
